@@ -1,6 +1,10 @@
-"""PyTorch port of `repro`, the distributed RMA lock simulator and its
-§5.3 DHT volume, with hand-written CUDA kernels for NVIDIA Hopper.
+"""PyTorch port of `repro`: the distributed RMA lock simulator, its
+§5.3 DHT volume and the serving path of the LM substrate (dense and ssm
+families), with hand-written CUDA kernels for NVIDIA Hopper.
 
 Entry points run on CUDA unless given `device="cpu"`:
-`repro_torch.core.Session` and `repro_torch.dht.BatchedDHT`.
+`repro_torch.core.Session`, `repro_torch.dht.BatchedDHT`,
+`repro_torch.models.lm.init_params` / `make_cache`,
+`repro_torch.models.convert.from_reference` and
+`python -m repro_torch.launch.serve`.
 """

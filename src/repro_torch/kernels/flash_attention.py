@@ -1,0 +1,129 @@
+"""Flash attention (GQA + causal + sliding window): a hand-written CUDA
+kernel for Hopper plus its plain PyTorch version.
+
+Replaces the Pallas TPU kernel of `repro.kernels.flash_attention`
+(`_kernel` via `flash_attention`). The kernel lives in
+`csrc/flash_attention.cu`, is built with nvcc for sm_90a at first use
+and called through ctypes on PyTorch's current stream. It computes in
+f32 on CUDA cores (see the source's header for its design and what
+bounds it).
+
+Semantics: q [B,Sq,H,dh], k/v [B,Skv,KV,dh], f32 or bf16 (one dtype),
+H % KV == 0, dh <= 128; query head h reads KV head h // (H // KV).
+Scores are (q / sqrt(dh)) k^T, masked to -1e30 where `causal` forbids
+(kpos > qpos) or the window does (kpos <= qpos - window); an online
+softmax over kv tiles keeps m, l and the accumulator in f32, and the
+output, normalised once by max(l, 1e-30), has q's dtype.
+
+The wrapper takes the plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises. `flash_attention.launches`
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+BLOCK_KV = 64          # the kernel's kv tile; the plain version's too
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None):
+    """Plain PyTorch version: the kernel's online softmax over kv tiles
+    of BLOCK_KV, all query rows at once, in f32."""
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qs = q.float().reshape(B, Sq, KV, G, dh) * (1.0 / math.sqrt(dh))
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, KV, G, Sq), NEG_INF, device=q.device)
+    den = torch.zeros(B, KV, G, Sq, device=q.device)
+    acc = torch.zeros(B, KV, G, Sq, dh, device=q.device)
+    for k0 in range(0, Skv, BLOCK_KV):
+        ks = k[:, k0:k0 + BLOCK_KV].float()
+        vs = v[:, k0:k0 + BLOCK_KV].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qs, ks)
+        kpos = torch.arange(k0, k0 + ks.shape[1], device=q.device)[None, :]
+        mask = torch.ones(Sq, ks.shape[1], dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos >= kpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vs)
+        m = m_new
+    out = acc / torch.clamp_min(den, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def _check(q, k, v, window):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-D, got "
+                             f"shape {tuple(t.shape)}")
+        if t.dtype != q.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise ValueError(f"flash_attention: q, k, v must share one "
+                             f"dtype, float32 or bfloat16; got {q.dtype}, "
+                             f"{k.dtype}, {v.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: tensors on {q.device} and "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, _, H, dh = q.shape
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh
+            or H % k.shape[2] != 0):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         "[B,Sq,H,dh] / [B,Skv,KV,dh] with H % KV == 0")
+    if dh > 128:
+        raise ValueError(f"flash_attention: head_dim {dh} > 128")
+    if window is not None and window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+
+
+def _lib():
+    lib = build.load("flash_attention")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [
+            p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        lib.flash_attention_launch.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """q: [B,Sq,H,dh]; k,v: [B,Skv,KV,dh] -> [B,Sq,H,dh] in q's dtype."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, KV, dh, int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(dh), int(causal),
+            -1 if window is None else int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: CUDA launch failed with "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,16 +1,24 @@
-"""Public DHT wrappers around the kernels: route a key batch to table
-blocks, run the kernel, and map the per-lane results back to key order.
+"""Public wrappers around the kernels (counterpart of
+`repro.kernels.ops`).
 
-Counterpart of `repro.kernels.ops`' `route_keys`, `dht_insert` and
-`dht_lookup`, with the same bucket capacity rule KB = min(max(K, 8),
-512): a key whose bucket already holds KB keys of the batch is not
-routed (idx = -1) and reports overflow (status 2) / a miss.
+`flash_attention` and `ssd_scan` are the kernel wrappers themselves
+(the TPU side's block shapes and interpret flag have no counterpart
+here). The DHT entries route a key batch to table blocks, run the
+kernel, and map the per-lane results back to key order, with the
+reference's bucket capacity rule KB = min(max(K, 8), 512): a key whose
+bucket already holds KB keys of the batch is not routed (idx = -1) and
+reports overflow (status 2) / a miss.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import dht_probe
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+__all__ = ["bucket_capacity", "dht_insert", "dht_lookup", "flash_attention",
+           "route_keys", "ssd_scan"]
 
 EMPTY = -1
 

@@ -1,10 +1,60 @@
-"""Sequential oracles for the DHT kernels (counterparts of the DHT part
-of `repro.kernels.ref`)."""
+"""Oracles for every kernel of the port (counterparts of
+`repro.kernels.ref`): naive attention, the sequential SSD recurrence and
+the sequential DHT insert/lookup."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 EMPTY = -1
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------ flash attention
+def attention_ref(q, k, v, *, causal=True, window=None):
+    """Naive attention. q: [B,Sq,H,dh]; k,v: [B,Skv,KV,dh]."""
+    B, Sq, H, dh = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, Sq, KV, G, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) / math.sqrt(dh)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+
+
+# ------------------------------------------------------------- ssd scan
+def ssd_ref(x, dt, A, B, C, *, init_state=None):
+    """Sequential SSD recurrence (exact oracle).
+
+    x: [b,S,H,P]; dt: [b,S,H]; A: [H]; B,C: [b,S,N].
+    Returns y: [b,S,H,P], final state [b,H,P,N] (f32).
+    """
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    s = (torch.zeros(b, H, P, N, device=x.device) if init_state is None
+         else init_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A[None])                # [b,H]
+        s = (s * decay[..., None, None]
+             + torch.einsum("bhp,bn,bh->bhpn", xf[:, t], Bf[:, t],
+                            dtf[:, t]))
+        ys.append(torch.einsum("bhpn,bn->bhp", s, Cf[:, t]))
+    return torch.stack(ys, dim=1), s
+
+
+# ------------------------------------------------------------ dht probe
 
 
 def dht_insert_ref(table_keys, table_vals, keys, vals):

@@ -82,3 +82,8 @@ except ImportError:
 
     sys.modules["hypothesis"] = _hypothesis
     sys.modules["hypothesis.strategies"] = _strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")

@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core, repro_torch.dht, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.configs, repro_torch.data, "
+            "repro_torch.models.lm, repro_torch.models.convert, "
+            "repro_torch.serve, repro_torch.launch.serve; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -65,6 +67,24 @@ def test_batched_dht_defaults_to_cuda_and_raises_without_it(no_cuda):
         BatchedDHT(nb=2, TB=8, heap=8)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         engine.resolve_device(None)
+
+
+def test_lm_and_launcher_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import convert, lm
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lm.make_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.from_reference({"embed": {}, "blocks": {}}, cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve.main(["--arch", "qwen2-0.5b", "--smoke"])
+    model = lm.init_params(cfg, torch.Generator(), device="cpu")
+    assert model.embed.tok.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(no_cuda, capsys):
