@@ -6,7 +6,9 @@ Phases, each fails the run if it fails:
 
   1. Card: name and power limit (nvidia-smi), then build every CUDA
      kernel from `src/repro_torch/kernels/csrc` (one nvcc per source, all
-     started together).
+     started together), print ptxas's registers, shared memory and
+     spills, and count the HGMMA (`wgmma`) instructions in the
+     tensor-core attention kernel's SASS (cuobjdump; fails if none).
   2. DHT volume (paper §5.3) at a deployment size: nb=16384 blocks x
      TB=1024 slots (16.8 M slots, 128 MiB of keys + values), a 2**22
      entry overflow heap; insert 2**22 distinct keys, then 2**21 of them
@@ -22,13 +24,19 @@ Phases, each fails the run if it fails:
      T_DC=1): prefill 4 x 1024 tokens, then 32 greedy tokens with a
      weight swap from a background thread at decode step 16. Checks
      that the prefill ran the flash_attention / ssd_scan kernel once per
-     layer, that each kernel equals its plain PyTorch version on the
-     inputs layer 0 of this path gave it (bf16 attention at 2e-2, SSD
-     at 2e-4), that teacher-forced decode after a 1016-token prefill
-     matches a 1024-token prefill's logits at 0.06, that logits are
-     finite and tokens in [0, vocab), and that the store's version rose
-     by exactly 1. Times both kernels against their bounds, their plain
-     versions and (attention) PyTorch's scaled_dot_product_attention.
+     layer (for Qwen2's bf16 prefill, the tensor-core variant: its own
+     counter equals n_layers), that teacher-forced decode after a
+     1016-token prefill matches a 1024-token prefill's logits (f32 at
+     1e-3; bf16 at 0.06), each dtype's run counted too (Qwen2's f32 run
+     is the CUDA-core attention variant's path), that logits are finite
+     and tokens in [0, vocab), and that the store's version rose by
+     exactly 1. Holds each kernel against its plain PyTorch version and
+     its oracle in kernels/ref.py on the inputs layer 0 of its path gave
+     it (bf16 attention at 2e-2, f32 attention at 2e-5, SSD at 2e-4,
+     y and the final state). Times each kernel against its bound and
+     its plain version, attention in turns with PyTorch's
+     scaled_dot_product_attention (kernel, SDPA, kernel); counts and
+     times (torch.profiler) the CUDA kernels one ssd_scan call launches.
   4. Lock simulator at the README's and the paper's sizes through
      `Session.run` / `Session.run_batch`: zero violations, completed,
      batch lanes bitwise equal to single runs, and seed-0 events /
@@ -46,7 +54,9 @@ around it, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -55,7 +65,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA H100 SXM data sheet
 # Dense peaks of the same data sheet: bf16 on the tensor cores, and f32
-# on the CUDA cores (the SSD's type; TF32 would miss its tolerance).
+# on the CUDA cores (the SSD's and f32 attention's type; TF32 would miss
+# their tolerances).
 H100_BF16_FLOP_S = 989e12
 H100_F32_FLOP_S = 67e12
 
@@ -301,7 +312,8 @@ def dht_phase(seed: int) -> list:
 # -------------------------------------------------------------- serving
 SERVE_ARCHS = ("qwen2-0.5b", "mamba2-130m")
 SERVE_B, SERVE_S, SERVE_NEW, SERVE_SWAP_AT, SERVE_TF = 4, 1024, 32, 16, 8
-ATTN_TOL, SSD_TOL = 2e-2, 2e-4      # bf16 attention, f32 SSD
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}    # by input dtype
+SSD_TOL = 2e-4
 # Teacher-forced decode against prefill, per compute dtype: f32 holds the
 # two paths to 1e-3 on every model; bf16 (the serving dtype) to the JAX
 # package's 0.06 (tests/test_archs.py), gated on Qwen2 only. On Mamba2 a
@@ -324,8 +336,9 @@ def close(got, want, tol: float):
 def attention_bound(q, k, v, causal: bool, window):
     """(bound ms, "bytes" or "operations", flops, bytes) of attention on
     these inputs: q, k, v read and the output written once; 4 dh
-    operations per (query, key) pair the mask keeps (q.k and p.v),
-    at the bf16 tensor-core peak."""
+    operations per (query, key) pair the mask keeps (q.k and p.v), at
+    the peak for the inputs' type: bf16 on the tensor cores, f32 on the
+    CUDA cores (the CUDA-core variant's; TF32 would miss its 2e-5)."""
     import torch
     B, Sq, H, dh = q.shape
     Skv = k.shape[1]
@@ -338,7 +351,9 @@ def attention_bound(q, k, v, causal: bool, window):
         keep &= kpos > qpos - window
     flops = 4 * dh * B * H * int(keep.sum())
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    return bound(flops, H100_BF16_FLOP_S, nbytes) + (flops, nbytes)
+    rate = (H100_BF16_FLOP_S if q.dtype == torch.bfloat16
+            else H100_F32_FLOP_S)
+    return bound(flops, rate, nbytes) + (flops, nbytes)
 
 
 def ssd_bound(x, dt, A, B, C, chunk: int):
@@ -399,14 +414,150 @@ def teacher_forced(cfg, params, tokens, dtype: str):
     return close(torch.cat(got, dim=1), want, TF_TOL[dtype])
 
 
-def serve_phase(seed: int) -> list:
+def kernel_counts() -> dict:
+    """The serving kernels' launch counters."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    f = fa.flash_attention
+    return {"flash_attention": f.launches, "flash_attention_wgmma":
+            f.launches_wgmma, "flash_attention_fma": f.launches_fma,
+            "ssd_scan": ssd.ssd_scan.launches}
+
+
+def reset_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    f = fa.flash_attention
+    f.launches = f.launches_wgmma = f.launches_fma = 0
+    ssd.ssd_scan.launches = 0
+
+
+@contextlib.contextmanager
+def first_call(mod, name: str):
+    """Inside the block, mod.<name> records its first call's (args,
+    kwargs) in the list this yields."""
+    kernel = getattr(mod, name)
+    seen = []
+
+    def capture(*args, **kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return kernel(*args, **kwargs)
+
+    setattr(mod, name, capture)
+    try:
+        yield seen
+    finally:
+        setattr(mod, name, kernel)
+
+
+def attention_row(kind: str, args, kwargs, launches: int) -> dict:
+    """Hold attention variant `kind` against its plain version and the
+    naive oracle ref.attention_ref (the TPU kernel's semantics, P in
+    f32) on these inputs, time it in turns with SDPA, and return its
+    kernels-line row."""
     import torch
     from torch.nn import functional as F
 
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v = args
+    dtype = str(q.dtype).removeprefix("torch.")
+    tol = ATTN_TOL[dtype]
+    check(fa.variant(q, k) == kind, f"layer 0's {dtype} attention inputs "
+          f"take the {fa.variant(q, k)} variant, not {kind}")
+    counter = f"launches_{kind}"
+    before = getattr(fa.flash_attention, counter)
+    got = fa.flash_attention(*args, **kwargs)
+    check(getattr(fa.flash_attention, counter) == before + 1,
+          f"flash_attention on {dtype} inputs did not launch the {kind} "
+          "kernel")
+    want = fa.flash_attention_plain(*args, **kwargs)
+    err, ok = close(got, want, tol)
+    ref_err, ref_ok = close(got, ref.attention_ref(*args, **kwargs), tol)
+    torch.cuda.synchronize()
+    qt, kt, vt = (t.transpose(1, 2) for t in args)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=kwargs.get("causal", True), enable_gqa=True)
+    sdpa_err, _ = close(sdpa().transpose(1, 2), want, tol)
+    check(ok, f"flash_attention ({kind}) differs from its plain version "
+          f"by {err}")
+    check(ref_ok, f"flash_attention ({kind}) differs from "
+          f"ref.attention_ref by {ref_err}")
+    # In turns: kernel, library, kernel again.
+    run = lambda: fa.flash_attention(*args, **kwargs)  # noqa: E731
+    turns = [cuda_ms(run, 20)]
+    library_ms = cuda_ms(sdpa, 20)
+    turns.append(cuda_ms(run, 20))
+    ms = sum(turns) / 2
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), 5)
+    bound_ms, by, flops, nbytes = attention_bound(*args, **kwargs)
+    print(f"flash_attention ({kind}, {dtype}): {ms:.4f} ms (turns "
+          f"{turns[0]:.4f}, {turns[1]:.4f}; plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms) on layer 0's inputs "
+          f"{[tuple(t.shape) for t in args]} {kwargs}; max |kernel - "
+          f"plain| {err}, |kernel - attention_ref| {ref_err}, |sdpa - "
+          f"plain| {sdpa_err} (tolerance {tol}); bound {bound_ms:.4f} ms "
+          f"by {by} ({flops} flop, {nbytes} bytes), "
+          f"{100 * bound_ms / ms:.2f}% of the bound", flush=True)
+    source = "flash_attention_wgmma" if kind == "wgmma" else "flash_attention"
+    return {"name": f"flash_attention_{kind}", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:33",
+            "launches": launches, "max_abs_err": max(err, ref_err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms}
+
+
+def ssd_row(args, kwargs, launches: int) -> dict:
+    """Hold ssd_scan against its plain version and the sequential oracle
+    ref.ssd_ref (y and the final state) on these inputs, count and time
+    the CUDA kernels of one call, and return its kernels-line row."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    kernel = ssd.ssd_scan
+    got, want = kernel(*args, **kwargs), ssd.ssd_scan_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    errs = [close(g, w, SSD_TOL) for g, w in zip(got, want)]
+    errs += [close(g, w, SSD_TOL) for g, w in zip(got, ref.ssd_ref(*args))]
+    err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+    print(f"ssd_scan: max |kernel - plain| {max(e for e, _ in errs[:2])}, "
+          f"max |kernel - ssd_ref| {max(e for e, _ in errs[2:])} "
+          f"(tolerance {SSD_TOL})", flush=True)
+    check(ok, f"ssd_scan differs from its plain version or ssd_ref by {err}")
+    passes = kernel_times(lambda: kernel(*args, **kwargs), "ssd_")
+    print(f"ssd_scan: one call launches {len(passes)} CUDA kernels "
+          "(torch.profiler; ms per call): " + ", ".join(
+              f"{k} x{c:g} {t:.4f}" for k, (c, t) in passes.items()),
+          flush=True)
+    check(len(passes) == ssd.KERNELS_PER_CALL
+          and all(c == 1 for c, _ in passes.values()),
+          f"ssd_scan launched {passes}, not {ssd.KERNELS_PER_CALL} kernels "
+          "once each")
+    turns = [cuda_ms(lambda: kernel(*args, **kwargs), 20) for _ in range(2)]
+    ms = sum(turns) / 2
+    plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(*args, **kwargs), 5)
+    bound_ms, by, flops, nbytes = ssd_bound(*args, **kwargs)
+    print(f"ssd_scan: {ms:.4f} ms (turns {turns[0]:.4f}, {turns[1]:.4f}; "
+          f"plain {plain_ms:.4f} ms, library None ms) on layer 0's inputs "
+          f"{[tuple(t.shape) for t in args]} {kwargs}; bound "
+          f"{bound_ms:.4f} ms by {by} ({flops} flop, {nbytes} bytes), "
+          f"{100 * bound_ms / ms:.2f}% of the bound", flush=True)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:33",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def serve_phase(seed: int) -> list:
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.data import batch_for
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.serve import generate
     from repro_torch.models import layers, lm, ssm
     from repro_torch.serve import VersionedStore
@@ -424,42 +575,44 @@ def serve_phase(seed: int) -> list:
         tokens = torch.from_numpy(
             batch_for(cfg, SERVE_B, SERVE_S, 0, seed=seed)["tokens"]).to(dev)
         n_params = sum(p.numel() for p in params.parameters())
-        # Teacher-forced decode against prefill (also the warm-up).
+        mod, name = ((layers, "flash_attention") if cfg.family == "dense"
+                     else (ssm, "ssd_scan"))
+        # Teacher-forced decode against prefill (also the warm-up). Each
+        # dtype's run is a counted path of its own (two prefills, so two
+        # launches per layer), layer 0's kernel inputs captured: Qwen2's
+        # f32 run is the path of the CUDA-core attention variant.
+        tf_seen, tf_counts = {}, {}
         for dtype in ("float32", "bfloat16"):
-            tf_err, tf_ok = teacher_forced(cfg, params, tokens, dtype)
+            reset_counts()
+            with first_call(mod, name) as seen:
+                tf_err, tf_ok = teacher_forced(cfg, params, tokens, dtype)
+            tf_seen[dtype], tf_counts[dtype] = seen[0], kernel_counts()
             gated = dtype in TF_GATED[arch]
             print(f"serve {arch}: {n_params} params (f32 masters), "
                   f"{dtype} teacher-forced decode vs prefill: max |diff| "
                   f"{tf_err}, tolerance {TF_TOL[dtype]} "
-                  f"({'gated' if gated else 'printed only'})", flush=True)
+                  f"({'gated' if gated else 'printed only'}), launches "
+                  f"{tf_counts[dtype]}", flush=True)
             check(tf_ok or not gated, f"{arch}: {dtype} teacher-forced "
                   f"decode differs from prefill by {tf_err}")
+            check(tf_counts[dtype][name] == 2 * cfg.n_layers,
+                  f"{arch}: the {dtype} teacher-forced run launched {name} "
+                  f"{tf_counts[dtype][name]} times, not once per layer in "
+                  f"each of its two prefills ({2 * cfg.n_layers})")
+        if name == "flash_attention":
+            check(tf_counts["float32"]["flash_attention_fma"]
+                  == 2 * cfg.n_layers,
+                  f"{arch}: the f32 teacher-forced run did not take the "
+                  f"CUDA-core attention variant: {tf_counts['float32']}")
 
         # ---- main path, counted; layer 0's kernel inputs captured ----
-        if cfg.family == "dense":
-            mod, name, kmod = layers, "flash_attention", fa
-        else:
-            mod, name, kmod = ssm, "ssd_scan", ssd
-        kernel = getattr(mod, name)
-        seen = []
-
-        def capture(*args, **kwargs):
-            if not seen:
-                seen.append((args, kwargs))
-            return kernel(*args, **kwargs)
-
-        setattr(mod, name, capture)
         version = store.version
-        fa.flash_attention.launches = 0
-        ssd.ssd_scan.launches = 0
-        try:
+        reset_counts()
+        with first_call(mod, name) as seen:
             toks, prefill_s, decode_s = generate(
                 cfg, store, tokens, SERVE_NEW, swap_every=SERVE_SWAP_AT,
                 background_swap=True)
-        finally:
-            setattr(mod, name, kernel)
-        launches = {"flash_attention": fa.flash_attention.launches,
-                    "ssd_scan": ssd.ssd_scan.launches}
+        launches = kernel_counts()
         steps = SERVE_NEW - 1
         cache = lm.make_cache(cfg, SERVE_B, 8, device=dev)
         with torch.no_grad():
@@ -476,54 +629,68 @@ def serve_phase(seed: int) -> list:
         check(launches[name] == cfg.n_layers,
               f"{arch}: {name} launched {launches[name]} times in one "
               f"prefill, not once per layer ({cfg.n_layers})")
+        if name == "flash_attention":
+            check(launches["flash_attention_wgmma"] == cfg.n_layers,
+                  f"{arch}: the tensor-core flash_attention ran "
+                  f"{launches['flash_attention_wgmma']} times in the bf16 "
+                  f"prefill, not once per layer ({cfg.n_layers})")
         check(store.version == version + 1,
               f"{arch}: store version {version} -> {store.version}")
         check(toks.shape == (SERVE_B, SERVE_NEW)
               and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
               f"{arch}: tokens out of [0, vocab) or of the wrong shape")
 
-        # ---- the kernel against its plain version on layer 0's inputs
-        args, kwargs = seen[0]
-        plain = getattr(kmod, f"{name}_plain")
-        got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
-        torch.cuda.synchronize()
+        # ---- each kernel against its plain version on layer 0's inputs
         if name == "flash_attention":
-            err, ok = close(got, want, ATTN_TOL)
-            bound_ms, by, flops, nbytes = attention_bound(*args, **kwargs)
-            q, k, v = (t.transpose(1, 2) for t in args)
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
-            sdpa_err, _ = close(sdpa().transpose(1, 2), want, ATTN_TOL)
-            library_ms = cuda_ms(sdpa, 20)
+            rows.append(attention_row(
+                "wgmma", *seen[0], launches["flash_attention_wgmma"]))
+            rows.append(attention_row(
+                "fma", *tf_seen["float32"],
+                tf_counts["float32"]["flash_attention_fma"]))
         else:
-            errs = [close(g, w, SSD_TOL) for g, w in zip(got, want)]
-            err, ok = max(e for e, _ in errs), all(o for _, o in errs)
-            bound_ms, by, flops, nbytes = ssd_bound(*args, **kwargs)
-            library_ms, sdpa_err = None, None
-        check(ok, f"{name} differs from its plain version by {err}")
-        ms = cuda_ms(lambda: kernel(*args, **kwargs), 20)
-        plain_ms = cuda_ms(lambda: plain(*args, **kwargs), 5)
-        shapes = [tuple(t.shape) for t in args]
-        print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-              f"{library_ms if library_ms is None else round(library_ms, 4)}"
-              f" ms) on layer 0's inputs {shapes} {kwargs}; max |kernel - "
-              f"plain| {err}" + ("" if sdpa_err is None else
-                                 f", |sdpa - plain| {sdpa_err}")
-              + f"; bound {bound_ms:.4f} ms by {by} ({flops} flop, "
-              f"{nbytes} bytes), {100 * bound_ms / ms:.2f}% of the bound",
-              flush=True)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{name}.py:33",   # `_kernel`
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": library_ms})
-        del params, store, seen, args, got, want
+            rows.append(ssd_row(*seen[0], launches["ssd_scan"]))
+        del params, store, seen, tf_seen
         torch.cuda.empty_cache()
         print(f"serve {arch}: {time.perf_counter() - t_arch:.1f} s in all",
               flush=True)
     return rows
+
+
+def kernel_times(fn, prefix: str, n: int = 10) -> dict:
+    """{CUDA kernel: (launches per call, device ms per call)} of fn(),
+    for the kernels whose name contains `prefix`, from torch.profiler
+    over n calls after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        # "void (anonymous namespace)::ssd_cb<true>(float const*, ...)"
+        found = re.search(r"(\w+(?:<[^>(]*>)?)\(", ev.key)
+        name = found.group(1) if found else ev.key
+        if prefix not in name:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        out[name] = (ev.count / n, us / n / 1e3)
+    return out
+
+
+def count_sass(lib: Path, opcode: str) -> int:
+    """How many SASS instructions of `opcode` the built library holds
+    (cuobjdump, from the CUDA toolkit beside nvcc)."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(f" {opcode}" in line for line in sass.splitlines())
 
 
 def count_ops(fn, device_type: str = "cuda"):
@@ -676,8 +843,13 @@ def main(argv=None) -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}.cu ptxas: {line.strip()}", flush=True)
+    hgmma = count_sass(build.lib_path("flash_attention_wgmma"), "HGMMA")
+    print(f"flash_attention_wgmma.cu SASS: {hgmma} HGMMA instructions "
+          "(cuobjdump -sass)", flush=True)
+    check(hgmma > 0, "the tensor-core attention kernel has no HGMMA")
 
     t0 = time.perf_counter()
     kernels = dht_phase(args.seed)

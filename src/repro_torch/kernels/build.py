@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("dht_probe", "flash_attention", "ssd_scan")
+SOURCES = ("dht_probe", "flash_attention", "flash_attention_wgmma",
+           "ssd_scan")
 
 
 def nvcc() -> str:

@@ -1,12 +1,21 @@
-"""Flash attention (GQA + causal + sliding window): a hand-written CUDA
-kernel for Hopper plus its plain PyTorch version.
+"""Flash attention (GQA + causal + sliding window): two hand-written
+CUDA kernels for Hopper plus their plain PyTorch version.
 
 Replaces the Pallas TPU kernel of `repro.kernels.flash_attention`
-(`_kernel` via `flash_attention`). The kernel lives in
-`csrc/flash_attention.cu`, is built with nvcc for sm_90a at first use
-and called through ctypes on PyTorch's current stream. It computes in
-f32 on CUDA cores (see the source's header for its design and what
-bounds it).
+(`_kernel` via `flash_attention`). Both kernels are built with nvcc for
+sm_90a at first use and called through ctypes on PyTorch's current
+stream (see each source's header for its design and what bounds it):
+
+- `csrc/flash_attention_wgmma.cu`, the tensor-core variant: both
+  products on `wgmma`, k/v through TMA into an `mbarrier` ring, P
+  rounded to bf16 for P V.
+- `csrc/flash_attention.cu`, the CUDA-core variant: f32 FMAs.
+
+Which one runs is a rule on dtype and shape only (`variant`): bf16
+inputs with head_dim a multiple of 16 up to 128 and Skv >= 1 take the
+tensor-core variant (then H*dh*2 and KV*dh*2, TMA's row strides, are
+multiples of 32 bytes); f32 inputs (whose 2e-5 tolerance TF32 misses)
+and every other bf16 shape take the CUDA-core variant.
 
 Semantics: q [B,Sq,H,dh], k/v [B,Skv,KV,dh], f32 or bf16 (one dtype),
 H % KV == 0, dh <= 128; query head h reads KV head h // (H // KV).
@@ -16,8 +25,9 @@ softmax over kv tiles keeps m, l and the accumulator in f32, and the
 output, normalised once by max(l, 1e-30), has q's dtype.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. `flash_attention.launches`
-counts kernel launches.
+tensors it launches a kernel or raises. `flash_attention.launches`
+counts kernel launches; `launches_wgmma` and `launches_fma` count each
+variant's.
 """
 from __future__ import annotations
 
@@ -29,14 +39,28 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-BLOCK_KV = 64          # the kernel's kv tile; the plain version's too
+# The plain version's kv tile (the CUDA-core kernel's; the tensor-core
+# kernel walks 128-key tiles, which changes only the rounding).
+BLOCK_KV = 64
+
+
+def variant(q, k) -> str:
+    """The kernel a CUDA call launches: "wgmma" for bf16 with head_dim a
+    multiple of 16 up to 128 and at least one key, else "fma"."""
+    dh, Skv = q.shape[3], k.shape[1]
+    if (q.dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128
+            and Skv >= 1):
+        return "wgmma"
+    return "fma"
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None):
-    """Plain PyTorch version: the kernel's online softmax over kv tiles
-    of BLOCK_KV, all query rows at once, in f32."""
+    """Plain PyTorch version: the kernels' online softmax over kv tiles
+    of BLOCK_KV, all query rows at once, in f32; where the tensor-core
+    variant would run, P is rounded to bf16 before P V, as there."""
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    round_p = variant(q, k) == "wgmma"
     G = H // KV
     qs = q.float().reshape(B, Sq, KV, G, dh) * (1.0 / math.sqrt(dh))
     qpos = torch.arange(Sq, device=q.device)[:, None]
@@ -58,6 +82,8 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None):
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         den = den * corr + p.sum(dim=-1)
+        if round_p:
+            p = p.bfloat16().float()
         acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vs)
         m = m_new
     out = acc / torch.clamp_min(den, 1e-30)[..., None]
@@ -93,15 +119,17 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: window {window} < 0")
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    if not getattr(lib, "_argtypes_set", False):
+def _entry(kind: str):
+    """The ctypes entry point of variant `kind` (one C signature for
+    both)."""
+    name = "flash_attention_wgmma" if kind == "wgmma" else "flash_attention"
+    fn = getattr(build.load(name), f"{name}_launch")
+    if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
-        lib.flash_attention_launch.restype = i
-        lib._argtypes_set = True
-    return lib
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
+                       i, p]
+        fn.restype = i
+    return fn
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
@@ -111,19 +139,30 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    kind = variant(q, k)
+    if kind == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the tensor-core variant reads "
+                         "q, k, v with TMA, which needs 16-byte aligned "
+                         "addresses; pass .clone() of an offset view")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _lib().flash_attention_launch(
+        err = _entry(kind)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Skv, H, KV, dh, int(q.dtype == torch.bfloat16),
             1.0 / math.sqrt(dh), int(causal),
             -1 if window is None else int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention: CUDA launch failed with "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention: CUDA launch of the {kind} "
+                           f"kernel failed with error {err}")
     flash_attention.launches += 1
+    if kind == "wgmma":
+        flash_attention.launches_wgmma += 1
+    else:
+        flash_attention.launches_fma += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_wgmma = 0
+flash_attention.launches_fma = 0

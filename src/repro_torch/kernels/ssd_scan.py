@@ -1,23 +1,31 @@
-"""Mamba2 SSD chunked scan: a hand-written CUDA kernel for Hopper plus
-its plain PyTorch version.
+"""Mamba2 SSD chunked scan: hand-written CUDA kernels for Hopper plus
+their plain PyTorch version.
 
 Replaces the Pallas TPU kernel of `repro.kernels.ssd_scan` (`_kernel`
-via `ssd_scan`). The kernel lives in `csrc/ssd_scan.cu`, is built with
+via `ssd_scan`). The kernels live in `csrc/ssd_scan.cu`, are built with
 nvcc for sm_90a at first use and called through ctypes on PyTorch's
-current stream. It computes in f32 on CUDA cores (see the source's
-header for its design and what bounds it).
+current stream. One call launches KERNELS_PER_CALL (4) CUDA kernels back
+to back, with no host sync between them; they compute in f32 on CUDA
+cores (see the source's header for their design and what bounds them):
+
+  1. per (b, chunk): the lower triangle of C B^T, once for all heads;
+  2. per (b, chunk, h): cum, the in-chunk prefix sum of dt*A for the
+     head, then the chunk's own state contribution, all chunks in
+     parallel;
+  3. per (b, h): the sequential carry over the chunks, which stores the
+     state entering each chunk and the final state;
+  4. per (b, chunk, h): y.
 
 Semantics: x [b,S,H,P], dt [b,S,H], A [H], B/C [b,S,N], all float32;
-`chunk` (at most 128, clipped to S) divides S. Per (b, h) the chunks run
-in order with an f32 [P, N] state carry; inside a chunk, with cum the
-in-chunk prefix sum of dt*A and L = exp(segment sums) on the lower
-triangle: y = (C B^T o L)(x dt) + (C e^cum) state^T and
-state' = e^{cum[-1]} state + (x dt e^{cum[-1] - cum})^T B. Returns
+`chunk` (at most 128, clipped to S) divides S. With cum the in-chunk
+prefix sum of dt*A and L = exp(segment sums) on the lower triangle
+(masked before the exp): y = (C B^T o L)(x dt) + (C e^cum) S_prev^T and
+S_next = e^{cum[-1]} S_prev + (x dt e^{cum[-1] - cum})^T B. Returns
 (y [b,S,H,P], final state [b,H,P,N]).
 
 The wrapper takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. `ssd_scan.launches` counts
-kernel launches.
+tensors it launches the kernels or raises. `ssd_scan.launches` counts
+calls that launched them (one per call, not per CUDA kernel).
 """
 from __future__ import annotations
 
@@ -28,35 +36,43 @@ import torch
 from repro_torch.kernels import build
 
 MAX_CHUNK = 128
+KERNELS_PER_CALL = 4
 
 
 def ssd_scan_plain(x, dt, A, B, C, *, chunk=128):
-    """Plain PyTorch version: the kernel's chunk loop over all (b, h) at
-    once, in f32."""
+    """Plain PyTorch version, pass by pass as the kernels compute, in
+    f32: C B^T per (b, chunk); every chunk's own state at once; the
+    sequential carry; then y."""
     b, S, H, P = x.shape
     N = B.shape[-1]
-    chunk = min(chunk, S)
+    cl = min(chunk, S)
+    nc = S // cl
+    xc = x.reshape(b, nc, cl, H, P)
+    dtc = dt.reshape(b, nc, cl, H)
+    Bc, Cc = B.reshape(b, nc, cl, N), C.reshape(b, nc, cl, N)
+    # 1. C B^T (its lower triangle is used) and cum, per (b, chunk).
+    G = Cc @ Bc.transpose(-1, -2)                          # [b,nc,i,j]
+    cum = torch.cumsum(dtc * A, dim=2)                     # [b,nc,cl,H]
+    total = cum[:, :, -1]                                  # [b,nc,H]
+    xdt = xc * dtc[..., None]                              # [b,nc,cl,H,P]
+    # 2. Each chunk's own state contribution, all chunks at once.
+    decay = torch.exp(total[:, :, None] - cum)             # [b,nc,cl,H]
+    local = torch.einsum("bcjhp,bcjn->bchpn", xdt * decay[..., None], Bc)
+    # 3. The carry: the state entering each chunk, and the final state.
     state = torch.zeros(b, H, P, N, device=x.device)
-    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
-    ys = []
-    for c0 in range(0, S, chunk):
-        sl = slice(c0, c0 + chunk)
-        dtc, Bc, Cc = dt[:, sl], B[:, sl], C[:, sl]
-        cum = torch.cumsum(dtc * A, dim=1)                     # [b,cl,H]
-        seg = cum[:, :, None, :] - cum[:, None, :, :]          # [b,i,j,H]
-        L = torch.exp(torch.where(tri[None, :, :, None], seg,
-                                  -torch.inf))
-        scores = torch.einsum("bin,bjn->bij", Cc, Bc)[..., None] * L
-        xdt = x[:, sl] * dtc[..., None]                        # [b,cl,H,P]
-        y_diag = torch.einsum("bijh,bjhp->bihp", scores, xdt)
-        c_decay = Cc[:, :, None, :] * torch.exp(cum)[..., None]  # [b,i,H,N]
-        y_off = torch.einsum("bihn,bhpn->bihp", c_decay, state)
-        ys.append(y_diag + y_off)
-        decay_end = torch.exp(cum[:, -1:] - cum)               # [b,cl,H]
-        state = (torch.exp(cum[:, -1])[..., None, None] * state
-                 + torch.einsum("bjhp,bjn->bhpn",
-                                xdt * decay_end[..., None], Bc))
-    return torch.cat(ys, dim=1), state
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = torch.exp(total[:, c])[..., None, None] * state + local[:, c]
+    prev = torch.stack(prev, dim=1)                        # [b,nc,H,P,N]
+    # 4. y, with the segment sums masked before the exp.
+    tri = torch.ones(cl, cl, dtype=torch.bool, device=x.device).tril()
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # [b,nc,i,j,H]
+    L = torch.exp(torch.where(tri[..., None], seg, -torch.inf))
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", G[..., None] * L, xdt)
+    y_off = torch.einsum("bcin,bchpn->bcihp", Cc, prev) * torch.exp(
+        cum)[..., None]
+    return (y_diag + y_off).reshape(b, S, H, P), state
 
 
 def _check(x, dt, A, B, C):
@@ -86,8 +102,7 @@ def _lib():
     lib = build.load("ssd_scan")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, p]
+        lib.ssd_scan_launch.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.ssd_scan_launch.restype = i
         lib._argtypes_set = True
     return lib
@@ -107,13 +122,19 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     b, _, H, P = x.shape
     N = B.shape[-1]
+    nc = S // chunk
     y = torch.empty_like(x)
     state = torch.empty(b, H, P, N, device=x.device)
+    # Scratch: C B^T per (b, chunk), cum per head, and the chunk states.
+    gt = torch.empty(b, nc, chunk, chunk, device=x.device)
+    cum = torch.empty(b, nc, H, chunk, device=x.device)
+    states = torch.empty(b, nc, H, P, N, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), b, S, H, P, N,
-            chunk, torch.cuda.current_stream(x.device).cuda_stream)
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), gt.data_ptr(),
+            cum.data_ptr(), states.data_ptr(), b, S, H, P, N, chunk,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: CUDA launch failed with error {err}")
     ssd_scan.launches += 1

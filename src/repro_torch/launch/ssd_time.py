@@ -1,0 +1,84 @@
+"""Time the port's ssd_scan kernels on the card at Mamba2-130M's layer
+shapes (x [4,1024,24,64] f32, dt [4,1024,24], A [24], B/C [4,1024,128],
+chunk 128), with random inputs made by numpy from seed 0.
+
+    python src/repro_torch/launch/ssd_time.py [--src TREE/src]
+
+`--src` names the source tree whose `repro_torch` is timed (default:
+the one holding this file), so that two checkouts can be compared on
+one card in one session, in turns (parent, change, change, parent);
+each builds its kernels into its own `build/`. Prints one JSON line:
+ms per call (the median over 9 groups of 20 back-to-back calls, each
+group between one pair of CUDA events, after a warm-up call), every
+group's ms, each CUDA kernel's device ms per call (torch.profiler over
+10 calls) and the card's name.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+from pathlib import Path
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve()
+                                         .parents[2]),
+                    help="the source tree (its src/ directory) to time")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.src).resolve()))
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        raise SystemExit("ssd_time: no CUDA device")
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    b, S, H, P, N = 4, 1024, 24, 64, 128
+    dt = torch.nn.functional.softplus(t(b, S, H) - 2.0)
+    A = -torch.exp(0.5 * t(H))
+    args_ = (t(b, S, H, P), dt, A, t(b, S, N), t(b, S, N))
+
+    def run():
+        return ssd_scan(*args_, chunk=128)
+
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(9):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            run()
+        torch.cuda.synchronize()
+    passes = {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            # "void (anonymous namespace)::ssd_cb<true>(float const*, ...)"
+            name = re.search(r"(\w+(?:<[^>(]*>)?)\(", ev.key)
+            passes[name.group(1) if name else ev.key] = (
+                ev.self_device_time_total / 10 / 1e3)
+    print(json.dumps({"src": args.src, "ms": float(np.median(times)),
+                      "groups_ms": times, "passes_ms": passes,
+                      "card": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

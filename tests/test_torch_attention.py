@@ -31,6 +31,10 @@ SHAPES = [
     (2, 100, 100, 4, 2, 32, True, None, "float32"),
     (1, 100, 100, 4, 2, 16, True, 24, "float32"),
     (1, 72, 72, 4, 1, 32, True, None, "bfloat16"),
+    # Qwen2-0.5B's heads (14 / 2, dh 64) cut to S 256, in bf16: the
+    # tensor-core variant's tiles and bf16 P in the plain version.
+    (1, 256, 256, 14, 2, 64, True, None, "bfloat16"),
+    (1, 200, 200, 8, 4, 128, True, 50, "bfloat16"),
 ]
 
 
@@ -84,6 +88,35 @@ def test_rows_with_no_key_average_every_value():
     np.testing.assert_allclose(got[0, -1].numpy(),
                                np.repeat(v[0].mean(0).numpy(), 2, axis=0),
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,dh,Skv,want", [
+    ("bfloat16", 64, 1024, "wgmma"), ("bfloat16", 128, 8, "wgmma"),
+    ("bfloat16", 16, 1, "wgmma"), ("bfloat16", 48, 64, "wgmma"),
+    ("bfloat16", 40, 64, "fma"), ("bfloat16", 8, 64, "fma"),
+    ("bfloat16", 64, 0, "fma"), ("float32", 64, 1024, "fma"),
+    ("float32", 128, 64, "fma")])
+def test_variant_rule(dtype, dh, Skv, want):
+    """The CUDA kernel a call takes follows dtype and shape only."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 4, 2, dh, dtype=dt)
+    k = torch.zeros(1, Skv, 1, dh, dtype=dt)
+    assert fa.variant(q, k) == want
+
+
+def test_plain_rounds_p_to_bf16_only_for_the_tensor_core_variant():
+    """bf16 inputs of the tensor-core shapes: P V uses P rounded to bf16,
+    as the kernel does; f32 inputs keep P in f32."""
+    (_, _, _), (q, k, v) = _inputs(1, 128, 128, 2, 1, 64, "float32", 9)
+    exact = fa.flash_attention_plain(q, k, v)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    got = fa.flash_attention_plain(qb, kb, vb).float()
+    want = fa.flash_attention_plain(qb.float(), kb.float(), vb.float())
+    assert not torch.equal(got, want.bfloat16().float())    # P was rounded
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-2,
+                               rtol=2e-2)
+    np.testing.assert_allclose(exact.numpy(), ref.attention_ref(
+        q, k, v).numpy(), atol=2e-5, rtol=2e-5)
 
 
 def test_cpu_wrapper_runs_the_plain_version(monkeypatch):

@@ -2,7 +2,9 @@
 oracles, on the card (marked `cuda`; they skip without one). The shapes
 are those of tests/test_kernels.py plus ragged lengths, so these cover
 what the model's path does not: windows, GQA groups, non-causal Sq !=
-Skv, head dims 16-128, f32, and chunks below 128.
+Skv, head dims 16-128, f32, and chunks below 128. Each attention case
+also checks which variant ran (tensor-core `wgmma` for bf16 with head_dim
+a multiple of 16 up to 128, CUDA-core `fma` otherwise).
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -27,6 +29,22 @@ ATTN_SHAPES = [
     (2, 100, 100, 4, 2, 32, True, 24, torch.float32),      # ragged tiles
     (1, 150, 70, 4, 2, 64, True, 40, torch.float32),       # empty rows
     (2, 1024, 1024, 14, 2, 64, True, None, torch.bfloat16),  # Qwen2 layer
+    # The tensor-core variant: Qwen2-0.5B's prefill shape, ragged S, GQA
+    # groups 1, 2 and 7, dh 64 and 128 (and 16, 48, 96: partial slabs),
+    # a window, non-causal Sq != Skv, a q tile with key-less rows.
+    (4, 1024, 1024, 14, 2, 64, True, None, torch.bfloat16),
+    (2, 1000, 1000, 14, 2, 64, True, None, torch.bfloat16),
+    (1, 256, 256, 4, 4, 64, True, None, torch.bfloat16),
+    (1, 256, 256, 8, 4, 128, True, None, torch.bfloat16),
+    (2, 300, 300, 4, 2, 128, True, 100, torch.bfloat16),
+    (2, 200, 330, 4, 1, 64, False, None, torch.bfloat16),
+    (1, 150, 70, 4, 2, 64, True, 40, torch.bfloat16),
+    (1, 64, 64, 2, 1, 16, True, None, torch.bfloat16),
+    (1, 128, 128, 4, 2, 48, True, None, torch.bfloat16),
+    (1, 128, 200, 4, 2, 96, False, 32, torch.bfloat16),
+    # bf16 shapes the tensor-core variant does not take.
+    (1, 64, 64, 2, 2, 40, True, None, torch.bfloat16),
+    (1, 96, 96, 2, 1, 8, True, 16, torch.bfloat16),
 ]
 SSD_SHAPES = [
     (2, 64, 3, 16, 8, 16),
@@ -35,6 +53,13 @@ SSD_SHAPES = [
     (3, 32, 4, 16, 4, 8),
     (2, 48, 2, 8, 4, 16),
     (2, 256, 3, 64, 128, 128),                              # model widths
+    (4, 1024, 24, 64, 128, 128),                            # Mamba2-130M
+    (2, 128, 3, 64, 128, 128),                              # one chunk
+    (2, 256, 4, 64, 128, 64),                               # chunk 64
+    (2, 256, 3, 48, 128, 128),                              # P 48
+    (2, 256, 3, 64, 64, 128),                               # N 64
+    (2, 36, 3, 6, 5, 6),                # 4-byte loads: P, N, chunk odd
+    (1, 21, 2, 8, 8, 7),
 ]
 
 
@@ -51,10 +76,13 @@ def test_flash_attention_kernel(dev, B, Sq, Skv, H, KV, dh, causal, win,
     rng = np.random.RandomState(Sq + dh)
     q, k, v = (torch.from_numpy(rng.randn(B, S, h, dh).astype(np.float32))
                .to(dev, dtype) for S, h in ((Sq, H), (Skv, KV), (Skv, KV)))
-    before = ops.flash_attention.launches
-    out = ops.flash_attention(q, k, v, causal=causal, window=win)
+    fa = ops.flash_attention
+    before = (fa.launches, fa.launches_wgmma, fa.launches_fma)
+    out = fa(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
-    assert ops.flash_attention.launches == before + 1
+    wgmma = dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128
+    assert (fa.launches, fa.launches_wgmma, fa.launches_fma) == (
+        before[0] + 1, before[1] + wgmma, before[2] + (not wgmma))
     assert out.dtype == dtype and out.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     for want in (flash_attention_plain(q, k, v, causal=causal, window=win),
@@ -63,12 +91,65 @@ def test_flash_attention_kernel(dev, B, Sq, Skv, H, KV, dh, causal, win,
                                    rtol=tol)
 
 
+def test_flash_attention_refuses_what_no_variant_takes(dev):
+    q = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 2, 144, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, q, q)
+    flat = torch.zeros(1 + 1 * 64 * 2 * 64, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 64, 2, 64)                       # 2-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, q, q)
+
+
 @pytest.mark.parametrize("b,S,H,P,N,chunk", SSD_SHAPES)
 def test_ssd_scan_kernel(dev, b, S, H, P, N, chunk):
+    _ssd_case(dev, b, S, H, P, N, chunk, a_scale=4, dt_scale=0.5)
+
+
+def test_ssd_scan_kernel_large_decay(dev):
+    """|A| dt of ~0.9 per step on average: cum spans over 88 inside a
+    chunk, so the upper triangle's segment sums overflow exp in f32
+    unless they are masked first. (Much larger spans leave f32 too few
+    digits in cum for 2e-4 in any chunked form.)"""
+    dt, A = _ssd_case(dev, 2, 256, 3, 64, 128, 128, a_scale=6,
+                      dt_scale=0.5)
+    span = (dt * A).reshape(2, 2, 128, 3).sum(axis=2)
+    assert np.abs(span).min() > 89
+
+
+def test_ssd_scan_kernel_unaligned_inputs(dev):
+    """x, B and C at a 4-byte offset from a 16-byte boundary: the kernels
+    take 4-byte copies although P, N and the chunk are multiples of 4."""
+    rng = np.random.RandomState(7)
+    b, S, H, P, N = 2, 256, 3, 64, 128
+
+    def offset(a):
+        flat = torch.zeros(1 + a.size, device=dev)
+        flat[1:] = torch.from_numpy(a.astype(np.float32).ravel()).to(dev)
+        return flat[1:].view(a.shape)
+
+    x = offset(rng.randn(b, S, H, P))
+    Bm, Cm = offset(rng.randn(b, S, N)), offset(rng.randn(b, S, N))
+    dt = torch.from_numpy((rng.rand(b, S, H) * 0.5 + 0.01).astype(
+        np.float32)).to(dev)
+    A = torch.from_numpy(-(rng.rand(H) * 4 + 0.5).astype(np.float32)).to(dev)
+    assert x.data_ptr() % 16 == 4
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
+    for want in (ssd_scan_plain(x, dt, A, Bm, Cm, chunk=128),
+                 ref.ssd_ref(x, dt, A, Bm, Cm)):
+        torch.testing.assert_close(y, want[0], atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(s, want[1], atol=2e-4, rtol=2e-4)
+
+
+def _ssd_case(dev, b, S, H, P, N, chunk, *, a_scale, dt_scale):
+    """Runs one case; returns the f64 (dt, A) it drew."""
     rng = np.random.RandomState(S + N)
     x = rng.randn(b, S, H, P)
-    dt = rng.rand(b, S, H) * 0.5 + 0.01
-    A = -(rng.rand(H) * 4 + 0.5)
+    dt = rng.rand(b, S, H) * dt_scale + 0.01
+    A = -(rng.rand(H) * a_scale + 0.5)
     Bm, Cm = rng.randn(b, S, N), rng.randn(b, S, N)
     args = [torch.from_numpy(a.astype(np.float32)).to(dev)
             for a in (x, dt, A, Bm, Cm)]
@@ -76,9 +157,11 @@ def test_ssd_scan_kernel(dev, b, S, H, P, N, chunk):
     y, s = ops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ops.ssd_scan.launches == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
     for want in (ssd_scan_plain(*args, chunk=chunk), ref.ssd_ref(*args)):
         torch.testing.assert_close(y, want[0], atol=2e-4, rtol=2e-4)
         torch.testing.assert_close(s, want[1], atol=2e-4, rtol=2e-4)
+    return dt, A
 
 
 def test_dht_kernels(dev):

@@ -55,6 +55,22 @@ def test_plain_matches_reference(b, S, H, P, N, chunk):
                                    rtol=2e-4)
 
 
+def test_plain_passes_at_model_widths():
+    """Mamba2-130M's widths (H 24, P 64, N 128, chunk 128) cut to S 256:
+    the plain version's four passes (C B^T per chunk, chunk states in
+    parallel, the sequential carry, y) against the Pallas kernel and the
+    sequential oracle, so the decomposition the CUDA kernels follow is
+    proved on two chunks."""
+    jin, tin = _inputs(2, 256, 24, 64, 128, seed=11)
+    y, s = ssd.ssd_scan_plain(*tin, chunk=128)
+    for wy, ws in (ref_ops.ssd_scan(*jin, chunk=128, interpret=True),
+                   jref.ssd_ref(*jin)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=2e-4,
+                                   rtol=2e-4)
+        np.testing.assert_allclose(s.numpy(), np.asarray(ws), atol=2e-4,
+                                   rtol=2e-4)
+
+
 def test_oracle_matches_reference_oracle():
     jin, tin = _inputs(2, 24, 3, 8, 4, seed=3)
     for got, want in zip(ref.ssd_ref(*tin), jref.ssd_ref(*jin)):
