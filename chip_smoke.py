@@ -17,7 +17,8 @@ Phases, each fails the run if it fails:
      volume's invariants, that both kernels ran on this path, and that
      each kernel equals its plain PyTorch version exactly on the inputs
      this path gave it; times both against their bytes-over-bandwidth
-     bound.
+     bound (the lookup's scattered table reads counted in 32-byte
+     sectors, `dht_lookup_bytes`).
   3. Serving (`repro_torch.launch.serve.generate`) of Qwen2-0.5B and
      Mamba2-130M at full width, random weights from a seeded
      torch.Generator on the card, under a VersionedStore(n_workers=4,
@@ -34,9 +35,11 @@ Phases, each fails the run if it fails:
      its oracle in kernels/ref.py on the inputs layer 0 of its path gave
      it (bf16 attention at 2e-2, f32 attention at 2e-5, SSD at 2e-4,
      y and the final state). Times each kernel against its bound and
-     its plain version, attention in turns with PyTorch's
-     scaled_dot_product_attention (kernel, SDPA, kernel); counts and
-     times (torch.profiler) the CUDA kernels one ssd_scan call launches.
+     its plain version; attention and PyTorch's
+     scaled_dot_product_attention by their device time (torch.profiler),
+     with CUDA-event times in turns (kernel, SDPA, kernel) beside; counts
+     and times (torch.profiler) the CUDA kernels one ssd_scan call
+     launches.
   4. Lock simulator at the README's and the paper's sizes through
      `Session.run` / `Session.run_batch`: zero violations, completed,
      batch lanes bitwise equal to single runs, and seed-0 events /
@@ -178,6 +181,24 @@ def cuda_ms(fn, n: int, groups: int = 5) -> float:
     return float(np.median(times))
 
 
+def dht_lookup_bytes(table_shape, keys_routed, hit) -> int:
+    """Bytes dht_lookup must move on these inputs. Streamed: each lane's
+    key read, its value and hit flag written (4 + 4 + 1 bytes). Table:
+    device memory moves whole 32-byte sectors, so every distinct sector
+    of table_keys that a valid lane's slot (key % TB in its block) falls
+    in, and of table_vals that a hit lane's slot falls in (the tables
+    are 32-byte aligned, 8 int32 slots a sector)."""
+    import torch
+    nb, TB = table_shape
+    valid = keys_routed != -1
+    slot = torch.where(valid, torch.remainder(keys_routed, TB), 0).long()
+    sector = (torch.arange(nb, device=keys_routed.device)[:, None] * TB
+              + slot) // 8
+    n_keys = torch.unique(sector[valid]).numel()
+    n_vals = torch.unique(sector[hit & valid]).numel()
+    return 32 * (n_keys + n_vals) + 9 * keys_routed.numel()
+
+
 def dht_phase(seed: int) -> list:
     import numpy as np
     import torch
@@ -282,9 +303,10 @@ def dht_phase(seed: int) -> list:
     # ---- timing and bounds (bytes each function must move) ----
     lanes = nb * KB
     ins_bytes = 4 * (4 * nb * TB + 3 * lanes)   # tk,tv in+out; keys,vals,status
-    valid = int((qr != -1).sum())
-    hits = int(lgot[1].sum())
-    look_bytes = 4 * lanes + 4 * valid + 4 * hits + 5 * lanes
+    look_bytes = dht_lookup_bytes((nb, TB), qr, lgot[1])
+    print(f"dht_lookup bytes: {lanes} lanes x 9 streamed + 32-byte sectors "
+          f"of the table for {int((qr != -1).sum())} valid and "
+          f"{int(lgot[1].sum())} hit lanes = {look_bytes}", flush=True)
     rows = []
     for name, line, ms, plain_ms, nbytes, err in (
             ("dht_insert", 40,
@@ -454,8 +476,8 @@ def first_call(mod, name: str):
 def attention_row(kind: str, args, kwargs, launches: int) -> dict:
     """Hold attention variant `kind` against its plain version and the
     naive oracle ref.attention_ref (the TPU kernel's semantics, P in
-    f32) on these inputs, time it in turns with SDPA, and return its
-    kernels-line row."""
+    f32) on these inputs, time it and SDPA, and return its kernels-line
+    row."""
     import torch
     from torch.nn import functional as F
 
@@ -484,17 +506,24 @@ def attention_row(kind: str, args, kwargs, launches: int) -> dict:
           f"by {err}")
     check(ref_ok, f"flash_attention ({kind}) differs from "
           f"ref.attention_ref by {ref_err}")
-    # In turns: kernel, library, kernel again.
+    # Kernel and SDPA by their device time (torch.profiler): a launch of
+    # ~0.06 ms is as short as the host's cost per call, which CUDA events
+    # around back-to-back calls would measure instead. Event times, in
+    # turns (kernel, SDPA, kernel), are printed beside.
     run = lambda: fa.flash_attention(*args, **kwargs)  # noqa: E731
-    turns = [cuda_ms(run, 20)]
-    library_ms = cuda_ms(sdpa, 20)
-    turns.append(cuda_ms(run, 20))
-    ms = sum(turns) / 2
+    passes = kernel_times(run, "")
+    ms = sum(t for _, t in passes.values())
+    check(ms > 0, f"torch.profiler saw no device time in flash_attention "
+          f"({kind})")
+    library_ms = sum(t for _, t in kernel_times(sdpa, "").values())
+    turns = [cuda_ms(run, 20), cuda_ms(sdpa, 20), cuda_ms(run, 20)]
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), 5)
     bound_ms, by, flops, nbytes = attention_bound(*args, **kwargs)
-    print(f"flash_attention ({kind}, {dtype}): {ms:.4f} ms (turns "
-          f"{turns[0]:.4f}, {turns[1]:.4f}; plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms) on layer 0's inputs "
+    print(f"flash_attention ({kind}, {dtype}): {ms:.4f} ms device time "
+          f"({', '.join(f'{k} x{c:g}' for k, (c, _) in passes.items())}; "
+          f"CUDA events in turns: kernel {turns[0]:.4f}, SDPA "
+          f"{turns[1]:.4f}, kernel {turns[2]:.4f}; plain {plain_ms:.4f} ms, "
+          f"SDPA {library_ms:.4f} ms device time) on layer 0's inputs "
           f"{[tuple(t.shape) for t in args]} {kwargs}; max |kernel - "
           f"plain| {err}, |kernel - attention_ref| {ref_err}, |sdpa - "
           f"plain| {sdpa_err} (tolerance {tol}); bound {bound_ms:.4f} ms "
@@ -659,13 +688,13 @@ def serve_phase(seed: int) -> list:
 def kernel_times(fn, prefix: str, n: int = 10) -> dict:
     """{CUDA kernel: (launches per call, device ms per call)} of fn(),
     for the kernels whose name contains `prefix`, from torch.profiler
-    over n calls after one warm-up."""
+    over n calls after one warm-up. Only the device is traced, so no
+    host op also carries its kernels' time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -679,7 +708,8 @@ def kernel_times(fn, prefix: str, n: int = 10) -> dict:
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        out[name] = (ev.count / n, us / n / 1e3)
+        if us > 0:
+            out[name] = (ev.count / n, us / n / 1e3)
     return out
 
 

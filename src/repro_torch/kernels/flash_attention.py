@@ -9,7 +9,8 @@ stream (see each source's header for its design and what bounds it):
 - `csrc/flash_attention_wgmma.cu`, the tensor-core variant: both
   products on `wgmma`, k/v through TMA into an `mbarrier` ring, P
   rounded to bf16 for P V.
-- `csrc/flash_attention.cu`, the CUDA-core variant: f32 FMAs.
+- `csrc/flash_attention.cu`, the CUDA-core variant: f32 FMAs on
+  register tiles, k/v staged by `cp.async`.
 
 Which one runs is a rule on dtype and shape only (`variant`): bf16
 inputs with head_dim a multiple of 16 up to 128 and Skv >= 1 take the

@@ -1,8 +1,13 @@
-"""Time the port's ssd_scan kernels on the card at Mamba2-130M's layer
-shapes (x [4,1024,24,64] f32, dt [4,1024,24], A [24], B/C [4,1024,128],
-chunk 128), with random inputs made by numpy from seed 0.
+"""Time one of the port's kernels on the card at its main path's layer
+shapes, with random inputs made by numpy from seed 0:
 
-    python src/repro_torch/launch/ssd_time.py [--src TREE/src]
+- `ssd_scan`: Mamba2-130M's (x [4,1024,24,64] f32, dt [4,1024,24], A
+  [24], B/C [4,1024,128], chunk 128);
+- `flash_attention_fma`: Qwen2-0.5B's f32 layer (q [4,1024,14,64], k/v
+  [4,1024,2,64], causal), the CUDA-core variant.
+
+    python src/repro_torch/launch/kernel_time.py \
+        [--kernel {ssd_scan,flash_attention_fma}] [--src TREE/src]
 
 `--src` names the source tree whose `repro_torch` is timed (default:
 the one holding this file), so that two checkouts can be compared on
@@ -21,9 +26,13 @@ import re
 import sys
 from pathlib import Path
 
+KERNELS = ("ssd_scan", "flash_attention_fma")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=KERNELS, default="ssd_scan",
+                    help="the kernel to time")
     ap.add_argument("--src", default=str(Path(__file__).resolve()
                                          .parents[2]),
                     help="the source tree (its src/ directory) to time")
@@ -34,8 +43,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
-        raise SystemExit("ssd_time: no CUDA device")
-    from repro_torch.kernels.ssd_scan import ssd_scan
+        raise SystemExit("kernel_time: no CUDA device")
 
     rng = np.random.default_rng(0)
 
@@ -43,13 +51,24 @@ def main(argv=None) -> int:
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).cuda()
 
-    b, S, H, P, N = 4, 1024, 24, 64, 128
-    dt = torch.nn.functional.softplus(t(b, S, H) - 2.0)
-    A = -torch.exp(0.5 * t(H))
-    args_ = (t(b, S, H, P), dt, A, t(b, S, N), t(b, S, N))
+    if args.kernel == "ssd_scan":
+        from repro_torch.kernels.ssd_scan import ssd_scan
+        b, S, H, P, N = 4, 1024, 24, 64, 128
+        dt = torch.nn.functional.softplus(t(b, S, H) - 2.0)
+        A = -torch.exp(0.5 * t(H))
+        args_ = (t(b, S, H, P), dt, A, t(b, S, N), t(b, S, N))
 
-    def run():
-        return ssd_scan(*args_, chunk=128)
+        def run():
+            return ssd_scan(*args_, chunk=128)
+    else:
+        from repro_torch.kernels import flash_attention as fa
+        q, k, v = t(4, 1024, 14, 64), t(4, 1024, 2, 64), t(4, 1024, 2, 64)
+        if fa.variant(q, k) != "fma":
+            raise SystemExit("kernel_time: f32 inputs do not take the "
+                             "CUDA-core attention variant")
+
+        def run():
+            return fa.flash_attention(q, k, v, causal=True)
 
     run()
     torch.cuda.synchronize()
@@ -74,8 +93,9 @@ def main(argv=None) -> int:
             name = re.search(r"(\w+(?:<[^>(]*>)?)\(", ev.key)
             passes[name.group(1) if name else ev.key] = (
                 ev.self_device_time_total / 10 / 1e3)
-    print(json.dumps({"src": args.src, "ms": float(np.median(times)),
-                      "groups_ms": times, "passes_ms": passes,
+    print(json.dumps({"kernel": args.kernel, "src": args.src,
+                      "ms": float(np.median(times)), "groups_ms": times,
+                      "passes_ms": passes,
                       "card": torch.cuda.get_device_name(0)}))
     return 0
 

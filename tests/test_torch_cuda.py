@@ -2,7 +2,8 @@
 oracles, on the card (marked `cuda`; they skip without one). The shapes
 are those of tests/test_kernels.py plus ragged lengths, so these cover
 what the model's path does not: windows, GQA groups, non-causal Sq !=
-Skv, head dims 16-128, f32, and chunks below 128. Each attention case
+Skv, head dims 16-128, f32 (at model width too, and off a 16-byte
+boundary), and chunks below 128. Each attention case
 also checks which variant ran (tensor-core `wgmma` for bf16 with head_dim
 a multiple of 16 up to 128, CUDA-core `fma` otherwise).
 
@@ -45,6 +46,15 @@ ATTN_SHAPES = [
     # bf16 shapes the tensor-core variant does not take.
     (1, 64, 64, 2, 2, 40, True, None, torch.bfloat16),
     (1, 96, 96, 2, 1, 8, True, 16, torch.bfloat16),
+    # The CUDA-core variant in f32: Qwen2-0.5B's layer (the f32
+    # teacher-forced path), dh 128 (one K/V stage) causal and windowed, a
+    # dh that is not a multiple of 4 (4-byte copies), non-causal Sq != Skv
+    # at dh 96.
+    (4, 1024, 1024, 14, 2, 64, True, None, torch.float32),
+    (1, 256, 256, 8, 4, 128, True, None, torch.float32),
+    (2, 300, 300, 4, 2, 128, True, 100, torch.float32),
+    (1, 70, 70, 2, 1, 5, True, None, torch.float32),
+    (1, 128, 200, 4, 2, 96, False, 32, torch.float32),
 ]
 SSD_SHAPES = [
     (2, 64, 3, 16, 8, 16),
@@ -89,6 +99,34 @@ def test_flash_attention_kernel(dev, B, Sq, Skv, H, KV, dh, causal, win,
                  ref.attention_ref(q, k, v, causal=causal, window=win)):
         torch.testing.assert_close(out.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,win", [
+    (4, 1024, 14, 2, 64, None),                             # Qwen2 layer
+    (1, 300, 4, 2, 128, 100),
+])
+def test_flash_attention_kernel_unaligned_inputs(dev, B, S, H, KV, dh, win):
+    """f32 q, k, v 4 bytes off a 16-byte boundary at model width: the
+    CUDA-core variant takes 4-byte copies although dh is a multiple of 4."""
+    rng = np.random.RandomState(S + dh)
+
+    def offset(shape):
+        a = rng.randn(*shape).astype(np.float32)
+        flat = torch.zeros(1 + a.size, device=dev)
+        flat[1:] = torch.from_numpy(a.ravel()).to(dev)
+        return flat[1:].view(shape)
+
+    q, k, v = offset((B, S, H, dh)), offset((B, S, KV, dh)), offset(
+        (B, S, KV, dh))
+    assert all(t.data_ptr() % 16 == 4 for t in (q, k, v))
+    fa = ops.flash_attention
+    before = fa.launches_fma
+    out = fa(q, k, v, causal=True, window=win)
+    torch.cuda.synchronize()
+    assert fa.launches_fma == before + 1
+    for want in (flash_attention_plain(q, k, v, causal=True, window=win),
+                 ref.attention_ref(q, k, v, causal=True, window=win)):
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
 
 
 def test_flash_attention_refuses_what_no_variant_takes(dev):
