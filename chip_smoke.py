@@ -48,6 +48,18 @@ Phases, each fails the run if it fails:
      configuration crashes a writer, so the full handler table (lease
      guards and recovery instructions) runs beside the crash-free one;
      each prints its torch ops per event step.
+  5. Parameter space (`Session.grid`, the Fig. 4a / Fig. 5 benchmarks,
+     the tuner), every lattice point a lane of one run: gate_rma_rw's
+     18-point (T_DC, T_L, T_R) grid equals the reference's per-point
+     constants below, sampled points and the slowest one equal fresh
+     sessions, and the grid split into two chunks on the card equals
+     the one-chunk grid, all bit for bit; `bench_rw_vs_sota` and
+     `sweep_tdc` at P=64 show zero violations and every point
+     completed; `tune` on `benchmarks/run.py --tune`'s default workload
+     (rma_rw P=64, F_W 0.05, 4 seeds, one refine round) picks the
+     reference's winner with its per-seed throughputs, which a fresh
+     session reproduces. Prints the grid's torch ops per event step,
+     wall times, and each tuning round's lanes and rates.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the card's name and power limit, and the line before that the
@@ -145,6 +157,42 @@ def run_seed(sess, engine, cfg: dict, seed: int):
     plan = engine.FaultPlan.single(sess.spec.P, *cfg["fault"])
     return engine.run_sim(sess.program, sess.env, sess.layout, seed=seed,
                           max_events=sess.max_events, fault=plan)
+
+
+# ------------------------------------------------------------------ grid
+# gate_rma_rw's (T_DC, T_L, T_R) lattice: 18 points, seed 0, one run.
+GRID_AXES = ([1, 4, 16], [(64, 4), (64, 1), None], [8, 1024])
+# Seed-0 (events, total_acquires, makespan as float32 bits) of the JAX
+# reference's grid, point by point in (T_DC, T_L, T_R) order.
+GRID_EXPECTED = (
+    (717, 64, 1141365390), (717, 64, 1141365390), (898, 64, 1145644388),
+    (898, 64, 1145644388), (717, 64, 1141365390), (717, 64, 1141365390),
+    (648, 64, 1126613649), (606, 64, 1126613649), (733, 64, 1131331925),
+    (691, 64, 1131331925), (648, 64, 1126613649), (606, 64, 1126613649),
+    (759, 64, 1124253368), (632, 64, 1121782988), (847, 64, 1126363630),
+    (673, 64, 1121507083), (759, 64, 1124253368), (632, 64, 1121782988))
+# Grid points (d, l, r) also run as fresh sessions: both T_DC extremes
+# and an unbounded T_L (the slowest point is run alone too).
+GRID_FRESH = ((0, 0, 0), (2, 1, 1), (1, 2, 0))
+# `benchmarks/run.py --tune`'s default workload.
+TUNE_SPEC = ("rma_rw", 64, dict(writer_fraction=0.05))
+TUNE_ARGS = dict(seeds=(0, 1, 2, 3), refine_rounds=1, target_acq=4)
+# The JAX reference's winner (LockSpec JSON) and its per-seed throughputs
+# (Python floats, as float64 bits).
+TUNE_EXPECTED = {
+    "spec": '{"P": 64, "T_DC": 32, "T_L": [1048576, 1], "T_R": 64, '
+            '"cost": {"atomic_factor": 1.35, "backoff0": 1.0, '
+            '"backoff_max": 32.0, "jitter": 0.08, "lat": [0.05, 0.3, 1.7, '
+            '2.1, 2.4], "occupancy": 0.4, "wake": 0.1}, "fanout": [4], '
+            '"kind": "rma_rw", "role_seed": 17, "writer_fraction": 0.05}',
+    "throughput_per_seed": (4698353854255726592, 4698311417294487552,
+                            4698363886225588224, 4698294738862735360),
+}
+
+
+def f64_bits(x) -> int:
+    import numpy as np
+    return int(np.float64(x).view(np.uint64))
 
 
 # ------------------------------------------------------------------ DHT
@@ -779,25 +827,31 @@ def key_chain(env, lanes: int, steps_per_s: float):
           f"{steps_per_s:.1f} steps/s", flush=True)
 
 
-def sim_phase():
+def bits(x) -> int:
+    """A float32 tensor's bits."""
     import numpy as np
-    import torch
+    return int(np.asarray(x.cpu(), np.float32).view(np.uint32))
 
+
+def same(a, b) -> bool:
+    """Every leaf of two Metrics equal, bit for bit."""
+    import torch
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def timed(fn):
+    """(fn(), its wall time in s, the card's work included)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sim_phase():
     from repro_torch.core import LockSpec, Session, engine, metrics_at
     from repro_torch.core.cost import CostModel
-
-    def bits(x):
-        return int(np.asarray(x.cpu(), np.float32).view(np.uint32))
-
-    def same(a, b) -> bool:
-        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     for name, cfg in SIM_CONFIGS.items():
         spec = make_spec(LockSpec, CostModel, cfg)
@@ -848,6 +902,120 @@ def sim_phase():
                       f"{name}: batch lane {s} differs from run({s})")
 
 
+@contextlib.contextmanager
+def grid_log(Session):
+    """Inside the block, every Session.grid call appends (wall s, lanes,
+    the slowest lane's events, all lanes' events) to the list this
+    yields."""
+    grid = Session.grid
+    log = []
+
+    def logged(self, *args, **kwargs):
+        m, dt = timed(lambda: grid(self, *args, **kwargs))
+        log.append((dt, m.events.numel(), int(m.events.max()),
+                    int(m.events.sum())))
+        return m
+
+    Session.grid = logged
+    try:
+        yield log
+    finally:
+        Session.grid = grid
+
+
+def grid_phase():
+    from repro_torch.bench import locks, thresholds
+    from repro_torch.core import LockSpec, Session, metrics_at
+    from repro_torch.core.cost import CostModel
+    from repro_torch.core.tuner import tune
+
+    # ---- gate grid: 18 points x seed 0 as lanes of one run ----
+    cfg = SIM_CONFIGS["gate_rma_rw"]
+    spec = make_spec(LockSpec, CostModel, cfg)
+    sess = Session(spec, **cfg["session"])
+    cut = {steps: Session(spec, max_events=steps, **cfg["session"])
+           for steps in (64, 128)}
+    n_all, n_dev = ops_per_step(
+        lambda steps: cut[steps].grid(*GRID_AXES, seeds=[0]))
+    print(f"grid gate_rma_rw: {n_all:.1f} torch ops per event step, "
+          f"{n_dev:.1f} of them on the card (18 points, crash-free table)",
+          flush=True)
+    m, dt = timed(lambda: sess.grid(*GRID_AXES, seeds=[0]))
+    shape = tuple(len(a) for a in GRID_AXES)
+    points = [(d, l, r) for d in range(shape[0]) for l in range(shape[1])
+              for r in range(shape[2])]
+    got = tuple((int(m.events[p + (0,)]), int(m.total_acquires[p + (0,)]),
+                 bits(m.makespan[p + (0,)])) for p in points)
+    steps = int(m.events.max())
+    print(f"grid gate_rma_rw: 18 points in {dt:.2f} s, {steps} event "
+          f"steps ({steps / dt:.1f} steps/s, {int(m.events.sum()) / dt:.1f} "
+          f"lane-events/s); (events, acquires, makespan bits) per point: "
+          f"{got}", flush=True)
+    check(int(m.violations.sum()) == 0 and bool(m.completed.all()),
+          "gate grid: violations or not completed")
+    check(got == GRID_EXPECTED, f"gate grid points differ from the "
+          f"reference: {got}, reference {GRID_EXPECTED}")
+    slowest = points[max(range(len(points)), key=lambda i: got[i][0])]
+    for d, l, r in sorted(set(GRID_FRESH) | {slowest}):
+        fresh, dt1 = timed(lambda: Session(spec.replace(
+            T_DC=GRID_AXES[0][d], T_L=GRID_AXES[1][l], T_R=GRID_AXES[2][r]),
+            **cfg["session"]).run_batch([0]))
+        point = (GRID_AXES[0][d], GRID_AXES[1][l], GRID_AXES[2][r])
+        print(f"grid gate_rma_rw: point {point} alone (fresh session): "
+              f"{int(fresh.events[0])} events in {dt1:.2f} s"
+              + (" (the grid's slowest point)" if (d, l, r) == slowest
+                 else ""), flush=True)
+        check(same(metrics_at(fresh, 0), metrics_at(m, d, l, r, 0)),
+              f"gate grid point {point} differs from a fresh session")
+    m2, dt2 = timed(lambda: sess.grid(*GRID_AXES, seeds=[0],
+                                      devices=["cuda:0", "cuda:0"]))
+    print(f"grid gate_rma_rw: two chunks on cuda:0 (in turn) in "
+          f"{dt2:.2f} s", flush=True)
+    check(same(m2, m), "the two-chunk grid differs from the one-chunk grid")
+
+    # ---- Fig. 5 and Fig. 4a at P=64 ----
+    rows, dt = timed(lambda: locks.bench_rw_vs_sota(
+        ps=(64,), fws=(0.002, 0.02, 0.05)))
+    print(f"fig5 bench_rw_vs_sota P=64 in {dt:.2f} s:", flush=True)
+    for row in rows:
+        print(f"  {row}", flush=True)
+    check(all(r["completed"] for r in rows), "fig5: a point did not complete")
+    tput = {(r["kind"], r["F_W"]): r["throughput_per_s"] for r in rows}
+    print("fig5 RMA-RW / foMPI-RW throughput per F_W: " + ", ".join(
+        f"{fw}: {tput['rma_rw', fw] / tput['fompi_rw', fw]:.3f}"
+        for fw in (0.002, 0.02, 0.05)), flush=True)
+    rows, dt = timed(lambda: thresholds.sweep_tdc(ps=(64,)))
+    print(f"fig4a sweep_tdc P=64 in {dt:.2f} s:", flush=True)
+    for row in rows:
+        print(f"  {row}", flush=True)
+    check(all(r["completed"] for r in rows), "fig4a: a point did not "
+          "complete")
+
+    # ---- the tuner at P=64: every round one grid of 4 seeds ----
+    kind, P, kw = TUNE_SPEC
+    with grid_log(Session) as log:
+        res, dt = timed(lambda: tune(LockSpec.paper_default(kind, P, **kw),
+                                     **TUNE_ARGS))
+    for i, (wall, lanes, steps, events) in enumerate(log):
+        print(f"tune round {i + 1}: {lanes} lanes in {wall:.2f} s, {steps} "
+              f"event steps ({steps / wall:.1f} steps/s, "
+              f"{events / wall:.1f} lane-events/s)", flush=True)
+    per_seed = tuple(f64_bits(x) for x in res.throughput_per_seed)
+    print(f"tune: {dt:.2f} s, {res.n_points} points, winner {res.spec} "
+          f"at {res.throughput} acquires/s, per seed "
+          f"{res.throughput_per_seed}", flush=True)
+    check(len(log) == 2 and log[0][1] == 36 * 4 and log[1][1] <= 27 * 4,
+          f"tune rounds ran {[e[1] for e in log]} lanes, not 144 and <= 108")
+    check(res.spec.to_json() == TUNE_EXPECTED["spec"]
+          and per_seed == TUNE_EXPECTED["throughput_per_seed"],
+          f"tune winner {res.spec.to_json()} {per_seed} differs from the "
+          f"reference's {TUNE_EXPECTED}")
+    rerun = Session(res.spec, target_acq=TUNE_ARGS["target_acq"]).run_batch(
+        list(res.seeds))
+    check(tuple(f64_bits(x) for x in rerun.throughput.cpu().numpy())
+          == per_seed, "the tuned spec rerun on a fresh session differs")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -890,6 +1058,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sim_phase()
     print(f"simulator phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    grid_phase()
+    print(f"grid phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

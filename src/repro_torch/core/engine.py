@@ -221,21 +221,41 @@ def _ix(i: torch.Tensor, n: int) -> torch.Tensor:
     return i.clamp(-n, 2 * n - 1)
 
 
+# Env fields that a point of the (T_DC, T_L, T_R, writer_fraction)
+# lattice can change, by the group of points that share them: every
+# T_DC has its own counter words and word owners, every T_L its own
+# thresholds and writer batch.
+LATTICE_GROUPS = ("layout", "T_L", "T_R", "roles")
+_GROUP_OF = {"n_ctr": "layout", "ctr_of_p": "layout", "arrive": "layout",
+             "depart": "layout", "plain_w": "layout", "atomic_w": "layout",
+             "T_L": "T_L", "T_W": "T_L", "T_R": "T_R", "is_writer": "roles"}
+_EXT_FIELDS = ("arrive", "depart", "plain_w", "atomic_w", "T_L")  # in Env.ext
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Env:
     """Static simulation environment shared by handlers (device tensors
-    plus the workload's Python scalars)."""
+    plus the workload's Python scalars).
+
+    A lattice env (`make_env(..., lanes=...)`) runs several lattice
+    points as the lanes of one run: each field of a group in `lanes`
+    carries a leading axis over that group's distinct values (n_ctr,
+    T_R and T_W become tensors), and lane l reads row lanes[group][l].
+    Groups absent from `lanes` hold one value for every lane, exactly as
+    in a single-point env; handlers read every such field through
+    `Ctx.point` / `Ctx.point_at_p`, which index only where a group is
+    batched."""
 
     P: int
     N: int
     W: int
     device: torch.device
-    n_ctr: int                 # live counters (the counter loops' bound)
+    n_ctr: int | torch.Tensor  # live counters (the counter loops' bound)
     ctr_of_p: torch.Tensor     # [P] counter c(p) of each process
     scratch_w: tuple           # scratch word indices (Python ints)
     same_leaf: torch.Tensor    # [P, P] bool (locality statistics)
-    T_R: int
-    T_W: int
+    T_R: int | torch.Tensor
+    T_W: int | torch.Tensor
     is_writer: torch.Tensor    # [P] bool
     target_acq: int
     cs_kind: int               # 0 empty, 1 single-op, 2 random 1-4us workload
@@ -248,6 +268,8 @@ class Env:
     # tw_rows [N, P] (entity and TAIL word of p at each level), and
     # plain_w / atomic_w [P, W] latencies from p to each word's owner.
     ext: dict = dataclasses.field(default_factory=dict)
+    # Lattice group -> [L] int64: each lane's row of the group's fields.
+    lanes: dict = dataclasses.field(default_factory=dict)
 
 
 class FaultPlan(NamedTuple):
@@ -297,18 +319,33 @@ def derive_tw(T_L) -> int:
     return int(np.minimum(np.prod(T_L.astype(np.int64)), 1 << 26))
 
 
-def make_env(m: Machine, layout: Layout, *, T_L=None, T_R=1 << 26,
+def make_env(m: Machine, layout, *, T_L=None, T_R=1 << 26,
              is_writer=None, target_acq=8, cs_kind=0, think=False,
              cost: CostModel = DEFAULT_COST, lease: float = 2.0,
-             device=None) -> Env:
+             device=None, lanes=None) -> Env:
+    """The environment of one lattice point, or with `lanes` of several.
+
+    `lanes` maps lattice groups (`LATTICE_GROUPS`) to [L] int arrays.
+    For each group in it, the group's argument is the sequence of its
+    distinct values (Layouts for "layout", T_L for "T_L", T_R for
+    "T_R", is_writer arrays for "roles") and lane l runs value
+    lanes[group][l]. A group with one distinct value is stored
+    un-batched. The layouts of one env must share every word but the
+    counters' (`build_layout(pad_counters_to=...)` gives that)."""
     device = resolve_device(device)
     dist = proc_distance_matrix(m)
     plain, atomic = cost.tables(dist)
-    if T_L is None:
-        T_L = np.full(m.N, 1 << 26, np.int32)
-    T_L = np.asarray(T_L, np.int32)
-    if is_writer is None:
-        is_writer = np.ones(m.P, bool)
+    lanes = dict(lanes or {})
+    if set(lanes) - set(LATTICE_GROUPS):
+        raise ValueError(f"lattice groups are {LATTICE_GROUPS}, got "
+                         f"{sorted(lanes)}")
+    args = {"layout": layout, "T_L": T_L, "T_R": T_R, "roles": is_writer}
+    values = {g: list(a) if g in lanes else [a] for g, a in args.items()}
+    layout = values["layout"][0]
+    for other in values["layout"][1:]:
+        if not _same_words(layout, other):
+            raise ValueError("the layouts of one env must differ only in "
+                             "their counters (pad them to one C_pad)")
 
     def dev(a):
         a = np.asarray(a)
@@ -316,32 +353,67 @@ def make_env(m: Machine, layout: Layout, *, T_L=None, T_R=1 << 26,
             a = a.astype(np.int64)
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+    def layout_fields(lay):
+        return {"n_ctr": int(lay.ctr_mask.sum()), "ctr_of_p": lay.ctr_of_p,
+                "arrive": _ext_np(lay.arrive_w),
+                "depart": _ext_np(lay.depart_w),
+                # Latency from p to the owner of word w, extended over w.
+                "plain_w": _ext_np(plain[:, lay.owner], (1,)),
+                "atomic_w": _ext_np(atomic[:, lay.owner], (1,))}
+
+    def tl_fields(tl):
+        tl = np.asarray(np.full(m.N, 1 << 26) if tl is None else tl,
+                        np.int32)
+        return {"T_L": _ext_np(tl), "T_W": derive_tw(tl)}
+
+    fields, ext, lane_ix = {}, {}, {}
+    for group, make in (
+            ("layout", layout_fields), ("T_L", tl_fields),
+            ("T_R", lambda r: {"T_R": int(r)}),
+            ("roles", lambda w: {"is_writer": np.ones(m.P, bool) if w is None
+                                 else np.asarray(w, bool)})):
+        rows = [make(v) for v in values[group]]
+        batched = len(rows) > 1
+        if batched:
+            lane_ix[group] = dev(lanes[group])
+        for k in rows[0]:
+            if batched:
+                v = dev(np.stack([r[k] for r in rows]))
+            else:
+                v = rows[0][k]
+                v = dev(v) if isinstance(v, np.ndarray) else v
+            (ext if k in _EXT_FIELDS else fields)[k] = v
+
     tabs = {k: padded_level_table(layout, k + "_w")
             for k in ("next", "status", "tail")}
     # TAIL word of p's element at level lvl, over lvl (p is always a
     # valid index): tw[lvl, p] = tail_t[lvl, elem_of_p[lvl, p]].
     tw = np.take_along_axis(tabs["tail"], layout.elem_of_p, axis=1)
-    ext = {
-        "next": _ext_np(tabs["next"]), "status": _ext_np(tabs["status"]),
-        "arrive": _ext_np(layout.arrive_w), "depart": _ext_np(layout.depart_w),
-        "T_L": _ext_np(T_L), "ent_rows": _ext_np(layout.ent_of_p, (0,)),
-        "tw_rows": _ext_np(tw, (0,)),
-        # Latency from p to the owner of word w, extended over w.
-        "plain_w": _ext_np(plain[:, layout.owner], (1,)),
-        "atomic_w": _ext_np(atomic[:, layout.owner], (1,)),
-    }
+    ext.update({
+        "next": dev(_ext_np(tabs["next"])),
+        "status": dev(_ext_np(tabs["status"])),
+        "ent_rows": dev(_ext_np(layout.ent_of_p, (0,))),
+        "tw_rows": dev(_ext_np(tw, (0,)))})
     for name in ("next", "status"):
         for lvl in range(m.N):
-            ext[f"{name}{lvl}"] = _ext_np(tabs[name][lvl])
+            ext[f"{name}{lvl}"] = dev(_ext_np(tabs[name][lvl]))
     return Env(
         P=m.P, N=m.N, W=layout.W, device=device,
-        n_ctr=int(layout.ctr_mask.sum()), ctr_of_p=dev(layout.ctr_of_p),
         scratch_w=tuple(int(w) for w in layout.scratch_w),
-        same_leaf=dev(dist <= 1), T_R=int(T_R),
-        T_W=derive_tw(T_L), is_writer=dev(np.asarray(is_writer, bool)),
-        target_acq=int(target_acq), cs_kind=int(cs_kind),
-        think=bool(think), cost=cost, lease=float(lease),
-        ext={k: dev(v) for k, v in ext.items()})
+        same_leaf=dev(dist <= 1), target_acq=int(target_acq),
+        cs_kind=int(cs_kind), think=bool(think), cost=cost,
+        lease=float(lease), ext=ext, lanes=lane_ix, **fields)
+
+
+def _same_words(a: Layout, b: Layout) -> bool:
+    """Whether two layouts agree on every word but the counters': the
+    window size, the queue and scratch words, and the counter slots'
+    count."""
+    return (a.W == b.W and len(a.arrive_w) == len(b.arrive_w)
+            and np.array_equal(a.scratch_w, b.scratch_w)
+            and all(np.array_equal(padded_level_table(a, t),
+                                   padded_level_table(b, t))
+                    for t in ("next_w", "status_w", "tail_w")))
 
 
 def init_state(env: Env, layout: Layout, init_pc: np.ndarray, n_regs: int,
@@ -477,7 +549,10 @@ class Ctx:
         gather semantics; a static int first index selects a row."""
         ext = self.env.ext
         if j is None:
-            return ext[name][_ix(i, ext[name].shape[0] // 3)]
+            t = ext[name]
+            i = _ix(i, t.shape[-1] // 3)
+            pix = self.env.lanes.get(_GROUP_OF.get(name))
+            return t[i] if pix is None else t[pix, i]
         if isinstance(i, int):
             t = ext[f"{name}{i}"]
             return t[_ix(j, t.shape[0] // 3)]
@@ -507,10 +582,32 @@ class Ctx:
         return self._lat("atomic_w", w)
 
     def _lat(self, name, w):
-        t = self.env.ext[name]                     # [P, 3W]
-        if isinstance(w, int):
-            return t[:, w][self.p]
-        return t[self.p, _ix(w, self.env.W)]
+        t = self.env.ext[name]                     # [P, 3W] (or [K, P, 3W])
+        pix = self.env.lanes.get("layout")
+        if pix is None:
+            if isinstance(w, int):
+                return t[:, w][self.p]
+            return t[self.p, _ix(w, self.env.W)]
+        return t[pix, self.p, w if isinstance(w, int) else _ix(w, self.env.W)]
+
+    # ---- lattice fields ----------------------------------------------
+    def point(self, name: str):
+        """Env field `name` of each lane's lattice point: the field
+        itself where every lane shares it, else its rows per lane ([L]
+        for n_ctr / T_R / T_W, [L, P] for is_writer / ctr_of_p)."""
+        v = getattr(self.env, name)
+        pix = self.env.lanes.get(_GROUP_OF[name])
+        if pix is None:
+            return v
+        return self.memo(("point", name), lambda: v[pix])
+
+    def point_at_p(self, name: str) -> torch.Tensor:
+        """[P] env field `name` at the executing process, per lane."""
+        v = getattr(self.env, name)
+        pix = self.env.lanes.get(_GROUP_OF[name])
+        if pix is None:
+            return v[self.p]
+        return self.memo(("point_at_p", name), lambda: v[pix, self.p])
 
     # ---- per-step shared quantities ----------------------------------
     @property
@@ -872,7 +969,7 @@ def _apply(prog, st, ctx, eff, hm, fm, draws, consts,
     backoff = torch.where(oh_hm, new_backoff[:, None], st.backoff)
 
     # cs_enter / cs_exit.
-    w_p = env.is_writer[p]
+    w_p = ctx.point_at_p("is_writer")
     ex = eff["cs_exit"] & hm
     viol = (st.writer_active > 0) | (w_p & (st.reader_active > 0))
     writer_active = (st.writer_active + (is_cs & w_p).long()
@@ -1019,6 +1116,10 @@ def step_loop(prog: Program, max_events: int, st: SimState,
     L = st.window.shape[0]
     if seeds.shape[0] != L:
         raise ValueError(f"{seeds.shape[0]} seeds for {L} lanes")
+    for group, pix in prog.env.lanes.items():
+        if pix.shape[0] != L:
+            raise ValueError(f"the env's {group!r} index has "
+                             f"{pix.shape[0]} lanes, the state {L}")
     consts = _consts(prog.env, L)
     stream = _KeyStream(prog.env, seeds)
     # A run where no process can crash takes the crash-free handlers.
@@ -1030,6 +1131,11 @@ def step_loop(prog: Program, max_events: int, st: SimState,
                 st = _step(prog, st, {k: v[:, j] for k, v in draws.items()},
                            max_events, consts, faults)
     return st
+
+
+def cat_states(states) -> SimState:
+    """The states' lanes, in order, as one state."""
+    return SimState(*(torch.cat(f) for f in zip(*states)))
 
 
 def summarize(st: SimState) -> Metrics:

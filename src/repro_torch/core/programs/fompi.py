@@ -164,7 +164,8 @@ class FompiRW:
             # release). Residual RC then belongs to dead readers only.
             def f():
                 free = c.pc_is(R_INC) | c.pc_is(R_DONE)
-                return (env.is_writer | c.st.done | c.expired | free).all(1)
+                return (c.point("is_writer") | c.st.done | c.expired
+                        | free).all(1)
             return c.memo("readers_quiescent", f)
 
         def w_try(c: Ctx):

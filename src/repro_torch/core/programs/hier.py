@@ -142,7 +142,6 @@ class HierProgram:
         guards route to, are never selected."""
         RW = self.has_readers
         Nlv = env.N
-        n_ctr = env.n_ctr
 
         # ---- addressing (JAX clamp semantics via Ctx.tab) -------------
         def ent(c, lvl):                  # entity p acts as at level lvl
@@ -174,7 +173,7 @@ class HierProgram:
             return c.memo("tw0", lambda: tw(c, 0))
 
         def ctr_p(c):
-            return c.memo("ctr_p", lambda: env.ctr_of_p[c.p])
+            return c.memo("ctr_p", lambda: c.point_at_p("ctr_of_p"))
 
         def wa_p(c):
             return c.memo("wa_p", lambda: c.tab("arrive", ctr_p(c)))
@@ -200,7 +199,7 @@ class HierProgram:
             of the entity does not keep its queue node alive)."""
             sel = (c.rows("ent_rows", lvl) == e[:, None]) & c.not_p
             if RW:
-                sel = sel & env.is_writer
+                sel = sel & c.point("is_writer")
             exp = c.expired
             return (sel & exp).any(1) & (~sel | exp | c.st.done).all(1)
 
@@ -229,7 +228,8 @@ class HierProgram:
                 c.pc_is(R_BARRIER) | c.pc_is(R_FAO) | c.pc_is(R_DONE)
                 | c.pc_is(R_RECOVER) | c.pc_is(R_UNBAR)
                 | c.st.done | c.expired))
-            rdr = (~env.is_writer) & (env.ctr_of_p == ctr[:, None])
+            rdr = ((~c.point("is_writer"))
+                   & (c.point("ctr_of_p") == ctr[:, None]))
             return (~rdr | free).all(1)
 
         def writers_gone(c):
@@ -237,7 +237,8 @@ class HierProgram:
             expired (R_BARRIER / R_UNBAR guard)."""
             def f():
                 exp = c.expired
-                return exp.any(1) & (~env.is_writer | c.st.done | exp).all(1)
+                return exp.any(1) & (~c.point("is_writer") | c.st.done
+                                     | exp).all(1)
             return c.memo("writers_gone", f)
 
         def dead_succ(c, lvl, succ):
@@ -329,7 +330,7 @@ class HierProgram:
             k = c.reg(K)
             w = wa_k(c)
             arr = c.win(w)
-            last = k + 1 >= n_ctr
+            last = k + 1 >= c.point("n_ctr")
             r = {K: _w(last, 0, k + 1)}
             # Set-if-unset: recovery may re-run the flagging loop over
             # counters the dead writer already flagged.
@@ -345,7 +346,7 @@ class HierProgram:
             wa, wd = wa_k(c), wd_k(c)
             clear = (c.win(wa) - WRITE_FLAG) == c.win(wd)
             stale = (~clear) & ctr_quiescent(c, k)
-            last = k + 1 >= n_ctr
+            last = k + 1 >= c.point("n_ctr")
             r = {K: _w(clear & ~last, k + 1, _w(clear & last, 0, k))}
             nxt = _w(~clear, _w(stale, REC_DRAIN, W_SCTW_VERIFY),
                      _w(last, WA_START_PARENT, W_SCTW_VERIFY))
@@ -398,7 +399,7 @@ class HierProgram:
             cols = {STATUS: stat, NEXT_STAT: ns, CRESET: 0}
             if RW:
                 cols.update({K: 0, TMP: ROOT_GETSUCC})
-                nxt = _w(ns >= env.T_W, ROOT_RESET, ROOT_GETSUCC)
+                nxt = _w(ns >= c.point("T_W"), ROOT_RESET, ROOT_GETSUCC)
             else:
                 nxt = ROOT_GETSUCC
             return Effect(dur=c.lat_plain(w), next_pc=nxt,
@@ -411,7 +412,7 @@ class HierProgram:
             wa, wd = wa_k(c), wd_k(c)
             arr, dep = c.win(wa), c.win(wd)
             sub_arr = -dep - _w(arr >= WRITE_FLAG, WRITE_FLAG, 0)
-            last = k + 1 >= n_ctr
+            last = k + 1 >= c.point("n_ctr")
             r = {
                 K: _w(last, 0, k + 1),
                 NEXT_STAT: _w(last, MODE_CHANGE, c.reg(NEXT_STAT)),
@@ -529,7 +530,7 @@ class HierProgram:
             wa = wa_p(c)
             t = tw0(c)
             barrier_on = c.reg(BARRIER) == 1
-            over = barrier_on & (c.win(wa) >= env.T_R)
+            over = barrier_on & (c.win(wa) >= c.point("T_R"))
             # Starvation recovery: a barred reader re-checks the tail and
             # resets the counter itself once it drains (R_RECOVER); crash
             # recovery takes priority (R_UNBAR).
@@ -549,8 +550,8 @@ class HierProgram:
             """Listing 9 line 12: FAO(1, c(p), ARRIVE, SUM)."""
             wa = wa_p(c)
             ret = c.win(wa)
-            got = ret < env.T_R
-            first = ret == env.T_R
+            got = ret < c.point("T_R")
+            first = ret == c.point("T_R")
             r = {RET: ret, BARRIER: _w(got, c.reg(BARRIER), 1)}
             return Effect(dur=c.lat_atomic(wa), hot=wa, writes=(wa,),
                           next_pc=_w(got, R_CS,
@@ -624,7 +625,7 @@ class HierProgram:
             pred_dead = entity_dead(c, lvl, pred)
             dcand = exp & (c.rows("ent_rows", lvl) == pred[:, None]) & c.not_p
             if RW:
-                dcand = dcand & env.is_writer
+                dcand = dcand & c.point("is_writer")
             d1 = dcand.to(torch.int8).argmax(1)[:, None]
             dpc = c.st.pc.gather(1, d1)[:, 0]
             dregs = c.st.regs[c.lanes, d1[:, 0]]          # [L, R]
@@ -747,7 +748,7 @@ class HierProgram:
             clear = (arr - WRITE_FLAG) == dep
             stale = (~clear) & ctr_quiescent(c, k)
             fixed = clear | stale
-            last = k + 1 >= n_ctr
+            last = k + 1 >= c.point("n_ctr")
             r = {K: _w(fixed & ~last, k + 1, _w(fixed & last, 0, k))}
             return Effect(dur=2.0 * c.lat_plain(wa) + c.lat_atomic(wa),
                           hot=wa, writes=(wa,),

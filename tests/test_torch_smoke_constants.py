@@ -2,11 +2,18 @@
 seed-0 constants it holds (events, total acquires, makespan as float32
 bits). This pins the constants of its README- and paper-sized
 configurations to the JAX reference (the P=16 configurations are
-pinned in test_torch_engine.py). The script is imported, not run."""
+pinned in test_torch_engine.py), and those of its grid phase: every
+point of the gate grid, and the tuner's winner and per-seed throughputs
+at P=64. The script is imported, not run."""
 import pytest
 
 pytest.importorskip("torch")
 
+from repro.core import LockSpec as RefSpec  # noqa: E402
+from repro.core import Session as RefSession  # noqa: E402
+from repro.core import metrics_at as ref_metrics_at  # noqa: E402
+from repro.core.cost import CostModel as RefCost  # noqa: E402
+from repro.core.tuner import tune as ref_tune  # noqa: E402
 from test_torch_engine import (P16, chip_smoke, ref_run0,  # noqa: E402
                                seed0_constants)
 
@@ -21,3 +28,29 @@ def test_every_configuration_has_constants():
 @pytest.mark.parametrize("name", LARGE)
 def test_chip_smoke_constants_match_reference(name):
     assert chip_smoke.SIM_EXPECTED[name] == seed0_constants(ref_run0(name))
+
+
+def test_chip_smoke_grid_constants_match_reference():
+    """GRID_EXPECTED: the reference's seed-0 constants of every point of
+    gate_rma_rw's 18-point grid, in (T_DC, T_L, T_R) order."""
+    cfg = chip_smoke.SIM_CONFIGS["gate_rma_rw"]
+    sess = RefSession(chip_smoke.make_spec(RefSpec, RefCost, cfg),
+                      **cfg["session"])
+    m = sess.grid(*chip_smoke.GRID_AXES, seeds=[0])
+    D, L, R = (len(a) for a in chip_smoke.GRID_AXES)
+    assert chip_smoke.GRID_EXPECTED == tuple(
+        seed0_constants(ref_metrics_at(m, d, l, r, 0))
+        for d in range(D) for l in range(L) for r in range(R))
+    assert all(0 <= i < n for p in chip_smoke.GRID_FRESH
+               for i, n in zip(p, (D, L, R)))
+
+
+def test_chip_smoke_tune_constants_match_reference():
+    """TUNE_EXPECTED: the reference tuner's winner and per-seed
+    throughputs on `benchmarks/run.py --tune`'s default workload."""
+    kind, P, kw = chip_smoke.TUNE_SPEC
+    res = ref_tune(RefSpec.paper_default(kind, P, **kw),
+                   **chip_smoke.TUNE_ARGS)
+    assert res.spec.to_json() == chip_smoke.TUNE_EXPECTED["spec"]
+    assert tuple(chip_smoke.f64_bits(x) for x in res.throughput_per_seed) \
+        == chip_smoke.TUNE_EXPECTED["throughput_per_seed"]
