@@ -40,15 +40,29 @@ Phases, each fails the run if it fails:
      with CUDA-event times in turns (kernel, SDPA, kernel) beside; counts
      and times (torch.profiler) the CUDA kernels one ssd_scan call
      launches.
-  4. Lock simulator at the README's and the paper's sizes through
+  4. Fig. 6, the crash matrix and the examples, through the entry
+     points a user calls: `bench.dht.bench_dht(ps=(64,))` (foMPI-A,
+     foMPI-RW and RMA-RW, each scheme's four writer fractions the lanes
+     of one run) equals the reference's rows (DHT_EXPECTED); prints each
+     scheme's wall time, slowest lane and lane-events/s, RMA-RW's
+     speedups and the DHT program's torch ops per event step.
+     `bench.faults.bench_faults()` (5 kinds x 3 crash times x P seeds)
+     equals the reference's payload (FAULTS_EXPECTED): zero violations,
+     every survivor completed. `examples.quickstart.main("cuda")` (its
+     RMA-RW and foMPI-RW runs are the simulator phase's quickstart
+     configurations, checked there; its DHT line equals the reference's)
+     and `examples.serve_kv.main("cuda")` (every request found, one swap
+     landed, tokens in range); both DHT kernels launched in each.
+  5. Lock simulator at the README's and the paper's sizes through
      `Session.run` / `Session.run_batch`: zero violations, completed,
      batch lanes bitwise equal to single runs, and seed-0 events /
      acquires / makespan bits equal to the constants below (derived from
-     the JAX reference by tests/test_torch_smoke_constants.py). One
-     configuration crashes a writer, so the full handler table (lease
-     guards and recovery instructions) runs beside the crash-free one;
-     each prints its torch ops per event step.
-  5. Parameter space (`Session.grid`, the Fig. 4a / Fig. 5 benchmarks,
+     the JAX reference by tests/test_torch_smoke_constants.py). The
+     quickstart configurations' seed-0 runs and 32-seed batch are those
+     phase 4's quickstart ran. One configuration crashes a writer, so the
+     full handler table (lease guards and recovery instructions) runs
+     beside the crash-free one; each prints its torch ops per event step.
+  6. Parameter space (`Session.grid`, the Fig. 4a / Fig. 5 benchmarks,
      the tuner), every lattice point a lane of one run: gate_rma_rw's
      18-point (T_DC, T_L, T_R) grid equals the reference's per-point
      constants below, sampled points and the slowest one equal fresh
@@ -98,9 +112,11 @@ SIM_CONFIGS = {
     "quickstart_fompi_rw": dict(spec=dict(kind="fompi_rw", P=64,
                                           writer_fraction=0.02),
                                 session=dict(target_acq=8, cs_kind=1)),
+    # Two acquires per process (the figures take 4): cut for the time
+    # budget.
     "paper_rma_rw_256": dict(paper_default=("rma_rw", 256,
                                             dict(writer_fraction=0.02)),
-                             session=dict(target_acq=4, cs_kind=0),
+                             session=dict(target_acq=2, cs_kind=0),
                              batch=64),
     "gate_fompi_spin": dict(spec=dict(kind="fompi_spin", P=16, jitter=0.0),
                             session=dict(target_acq=4)),
@@ -126,7 +142,7 @@ SIM_CONFIGS["crash_rma_rw"] = dict(SIM_CONFIGS["gate_rma_rw"],
 SIM_EXPECTED = {
     "quickstart_rma_rw": (3478, 512, 1138838875),
     "quickstart_fompi_rw": (5073, 512, 1149558392),
-    "paper_rma_rw_256": (6190, 1024, 1133293391),
+    "paper_rma_rw_256": (2909, 512, 1138955467),
     "gate_fompi_spin": (744, 64, 1131936403),
     "gate_fompi_rw": (1101, 64, 1130390740),
     "gate_rma_rw": (648, 64, 1126613649),
@@ -188,6 +204,53 @@ TUNE_EXPECTED = {
     "throughput_per_seed": (4698353854255726592, 4698311417294487552,
                             4698363886225588224, 4698294738862735360),
 }
+
+
+# ----------------------------------------------------------------- Fig. 6
+# Fig. 6 at P=64: the paper's P up to 1024, cut to the card's time budget.
+DHT_PS = (64,)
+# The JAX reference's `benchmarks/dht_bench.bench_dht(ps=(64,))` rows.
+DHT_EXPECTED = (
+    {"bench": "dht", "P": 64, "F_W": 0.0, "fompi_a_us": 158.9062957763672,
+     "fompi_rw_us": 204.95896911621094, "rma_rw_us": 28.030620574951172},
+    {"bench": "dht", "P": 64, "F_W": 0.02, "fompi_a_us": 158.4996337890625,
+     "fompi_rw_us": 657.2803955078125, "rma_rw_us": 228.51866149902344},
+    {"bench": "dht", "P": 64, "F_W": 0.05, "fompi_a_us": 158.05203247070312,
+     "fompi_rw_us": 1030.4765625, "rma_rw_us": 156.24978637695312},
+    {"bench": "dht", "P": 64, "F_W": 0.2, "fompi_a_us": 156.39109802246094,
+     "fompi_rw_us": 2533.0625, "rma_rw_us": 286.3930969238281})
+# The JAX reference's `benchmarks/faults.bench_faults()` payload.
+FAULTS_EXPECTED = {"crash_times_us": [0.5, 1.5, 3.0], "rows": [
+    {"kind": "d_mcs", "P": 2, "n_runs": 6, "n_recovered": 3,
+     "recovery_us_p50": 3.9664820432662964,
+     "recovery_us_p90": 4.0547349691390995,
+     "recovery_us_p99": 4.07459187746048, "total_reclaims": 3,
+     "recovery_retries": 0, "violations": 0, "all_completed": True},
+    {"kind": "rma_mcs", "P": 2, "n_runs": 6, "n_recovered": 6,
+     "recovery_us_p50": 6.0480475425720215,
+     "recovery_us_p90": 6.811111092567444,
+     "recovery_us_p99": 6.853310233354568, "total_reclaims": 6,
+     "recovery_retries": 0, "violations": 0, "all_completed": True},
+    {"kind": "rma_rw", "P": 2, "n_runs": 6, "n_recovered": 6,
+     "recovery_us_p50": 6.677282929420471,
+     "recovery_us_p90": 7.796548128128052,
+     "recovery_us_p99": 7.796548128128052, "total_reclaims": 30,
+     "recovery_retries": 0, "violations": 0, "all_completed": True},
+    {"kind": "fompi_spin", "P": 4, "n_runs": 12, "n_recovered": 0,
+     "recovery_us_p50": 0.0, "recovery_us_p90": 0.0,
+     "recovery_us_p99": 0.0, "total_reclaims": 0, "recovery_retries": 0,
+     "violations": 0, "all_completed": True},
+    {"kind": "fompi_rw", "P": 4, "n_runs": 12, "n_recovered": 4,
+     "recovery_us_p50": 3.809403121471405,
+     "recovery_us_p90": 3.906252992153168,
+     "recovery_us_p99": 3.93568346619606, "total_reclaims": 4,
+     "recovery_retries": 0, "violations": 0, "all_completed": True}]}
+# The reference quickstart's DHT line: (inserted, overflow) of its 200 keys.
+QUICKSTART_DHT_EXPECTED = (186, 14)
+# The simulator configurations whose seed-0 runs and batch come from
+# examples/quickstart (session name in its rw_demo -> configuration).
+QUICKSTART_SESSIONS = {"rma_rw": "quickstart_rma_rw",
+                       "fompi_rw": "quickstart_fompi_rw"}
 
 
 def f64_bits(x) -> int:
@@ -799,8 +862,13 @@ def ops_per_step(run, device_type: str = "cuda"):
     """Torch ops dispatched per event step of `run(steps)` (seed 0 cut
     at `steps` events), in all and with a tensor on the card: the
     difference between a 128- and a 64-step run over 64, so set-up and
-    summary cancel. The engine is launch-bound, so this is its cost
-    model."""
+    summary cancel. `run` builds its session or program anew on every
+    call, so both runs build their merge plan; an uncounted 64-step run
+    first creates the constants the engine caches for the whole process
+    (`engine.scalar`), which would otherwise count in whichever
+    configuration needs them first. The engine is launch-bound, so
+    this is its cost model."""
+    run(64)
     counts = [count_ops(lambda: run(steps), device_type)
               for steps in (64, 128)]
     return tuple((b - a) / 64 for a, b in zip(*counts))
@@ -849,27 +917,33 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def sim_phase():
+def sim_phase(from_examples: dict):
+    """`from_examples`: configuration name -> {"session", "runs": {seed:
+    (Metrics, wall s)}, "batch": (Metrics, wall s)} of runs an example
+    made on this card; they are checked here and not run again."""
     from repro_torch.core import LockSpec, Session, engine, metrics_at
     from repro_torch.core.cost import CostModel
 
     for name, cfg in SIM_CONFIGS.items():
         spec = make_spec(LockSpec, CostModel, cfg)
-        sess = Session(spec, **cfg["session"])
-        cut = {steps: Session(spec, max_events=steps, **cfg["session"])
-               for steps in (64, 128)}
-        n_all, n_dev = ops_per_step(
-            lambda steps: run_seed(cut[steps], engine, cfg, 0))
+        ex = from_examples.get(name, {})
+        sess = ex.get("session") or Session(spec, **cfg["session"])
+        n_all, n_dev = ops_per_step(lambda steps: run_seed(Session(
+            spec, max_events=steps, **cfg["session"]), engine, cfg, 0))
         table = "full" if "fault" in cfg else "crash-free"
         print(f"sim {name}: {n_all:.1f} torch ops per event step, "
               f"{n_dev:.1f} of them on the card ({table} handler table)",
               flush=True)
         singles = {}
         for seed in ((0, 1) if cfg.get("batch") else (0,)):
-            m, dt = timed(lambda: run_seed(sess, engine, cfg, seed))
+            if seed in ex.get("runs", {}):
+                (m, dt), where = ex["runs"][seed], " (examples.quickstart)"
+            else:
+                m, dt = timed(lambda: run_seed(sess, engine, cfg, seed))
+                where = ""
             singles[seed] = m
             ev = int(m.events)
-            print(f"sim {name} run({seed}): events {ev}, acquires "
+            print(f"sim {name} run({seed}){where}: events {ev}, acquires "
                   f"{int(m.total_acquires)}, makespan {float(m.makespan)} us, "
                   f"violations {int(m.violations)}, crashed "
                   f"{int(m.n_crashed)}, reclaims {int(m.reclaims)}, "
@@ -887,9 +961,16 @@ def sim_phase():
               f"{name}: seed 0 gave {got}, reference {SIM_EXPECTED[name]}")
         n = cfg.get("batch")
         if n:
-            mb, dt = timed(lambda: sess.run_batch(range(n)))
+            if "batch" in ex:
+                (mb, dt), where = ex["batch"], " (examples.quickstart)"
+                check(mb.events.numel() == n, f"{name}: the example's batch "
+                      f"has {mb.events.numel()} lanes, not {n}")
+            else:
+                mb, dt = timed(lambda: sess.run_batch(range(n)))
+                where = ""
             steps = int(mb.events.max())
-            print(f"sim {name} run_batch({n}): events {int(mb.events.min())}"
+            print(f"sim {name} run_batch({n}){where}: events "
+                  f"{int(mb.events.min())}"
                   f"..{steps}, {dt:.2f} s, {steps / dt:.1f} event steps/s, "
                   f"{int(mb.events.sum()) / dt:.1f} lane-events/s",
                   flush=True)
@@ -903,24 +984,27 @@ def sim_phase():
 
 
 @contextlib.contextmanager
-def grid_log(Session):
-    """Inside the block, every Session.grid call appends (wall s, lanes,
-    the slowest lane's events, all lanes' events) to the list this
-    yields."""
-    grid = Session.grid
+def call_log(owner, *names):
+    """Inside the block, every call of owner.<name>, for each of `names`,
+    appends (name, args, kwargs, result, wall s with the card's work
+    included) to the list this yields."""
+    saved = {n: getattr(owner, n) for n in names}
     log = []
 
-    def logged(self, *args, **kwargs):
-        m, dt = timed(lambda: grid(self, *args, **kwargs))
-        log.append((dt, m.events.numel(), int(m.events.max()),
-                    int(m.events.sum())))
-        return m
+    def logged(name, fn):
+        def call(*args, **kwargs):
+            out, dt = timed(lambda: fn(*args, **kwargs))
+            log.append((name, args, kwargs, out, dt))
+            return out
+        return call
 
-    Session.grid = logged
+    for n, fn in saved.items():
+        setattr(owner, n, logged(n, fn))
     try:
         yield log
     finally:
-        Session.grid = grid
+        for n, fn in saved.items():
+            setattr(owner, n, fn)
 
 
 def grid_phase():
@@ -933,10 +1017,9 @@ def grid_phase():
     cfg = SIM_CONFIGS["gate_rma_rw"]
     spec = make_spec(LockSpec, CostModel, cfg)
     sess = Session(spec, **cfg["session"])
-    cut = {steps: Session(spec, max_events=steps, **cfg["session"])
-           for steps in (64, 128)}
-    n_all, n_dev = ops_per_step(
-        lambda steps: cut[steps].grid(*GRID_AXES, seeds=[0]))
+    n_all, n_dev = ops_per_step(lambda steps: Session(
+        spec, max_events=steps, **cfg["session"]).grid(*GRID_AXES,
+                                                      seeds=[0]))
     print(f"grid gate_rma_rw: {n_all:.1f} torch ops per event step, "
           f"{n_dev:.1f} of them on the card (18 points, crash-free table)",
           flush=True)
@@ -993,9 +1076,11 @@ def grid_phase():
 
     # ---- the tuner at P=64: every round one grid of 4 seeds ----
     kind, P, kw = TUNE_SPEC
-    with grid_log(Session) as log:
+    with call_log(Session, "grid") as calls:
         res, dt = timed(lambda: tune(LockSpec.paper_default(kind, P, **kw),
                                      **TUNE_ARGS))
+    log = [(wall, m.events.numel(), int(m.events.max()),
+            int(m.events.sum())) for _, _, _, m, wall in calls]
     for i, (wall, lanes, steps, events) in enumerate(log):
         print(f"tune round {i + 1}: {lanes} lanes in {wall:.2f} s, {steps} "
               f"event steps ({steps / wall:.1f} steps/s, "
@@ -1014,6 +1099,124 @@ def grid_phase():
         list(res.seeds))
     check(tuple(f64_bits(x) for x in rerun.throughput.cpu().numpy())
           == per_seed, "the tuned spec rerun on a fresh session differs")
+
+
+def dht_counts() -> dict:
+    from repro_torch.kernels import dht_probe
+    return {"dht_insert": dht_probe.dht_insert.launches,
+            "dht_lookup": dht_probe.dht_lookup.launches}
+
+
+def reset_dht_counts():
+    from repro_torch.kernels import dht_probe
+    dht_probe.dht_insert.launches = dht_probe.dht_lookup.launches = 0
+
+
+def fig6_phase() -> dict:
+    """Fig. 6 at P=64, the crash matrix, and the quickstart and serve_kv
+    examples. Returns the quickstart's Session runs by simulator
+    configuration (see `sim_phase`)."""
+    import torch
+
+    from repro_torch.bench import dht, faults
+    from repro_torch.core import LockSpec, Session, engine
+    from repro_torch.core.cost import CostModel
+    from repro_torch.examples import quickstart, serve_kv
+
+    # ---- Fig. 6: each scheme's F_W values as the lanes of one run ----
+    with call_log(dht, "run_fompi_a", "run_locked") as calls:
+        rows, dt = timed(lambda: dht.bench_dht(ps=DHT_PS))
+    print(f"fig6 bench_dht P={DHT_PS} in {dt:.2f} s:", flush=True)
+    for name, args, _, m, wall in calls:
+        scheme = "fompi_a" if name == "run_fompi_a" else args[0]
+        steps, events = int(m.events.max()), int(m.events.sum())
+        print(f"  {scheme}: {m.events.numel()} lanes (F_W "
+              f"{list(args[2 if name == 'run_locked' else 1])}) in "
+              f"{wall:.2f} s, slowest lane {steps} events, events per lane "
+              f"{m.events.reshape(-1).tolist()}, "
+              f"{events / wall:.1f} lane-events/s", flush=True)
+        check(int(m.violations.sum()) == 0 and bool(m.completed.all()),
+              f"fig6 {scheme}: violations or not completed")
+    for row in rows:
+        print(f"  {row}", flush=True)
+    check(rows == list(DHT_EXPECTED), f"fig6 rows differ from the "
+          f"reference's: {rows}, reference {DHT_EXPECTED}")
+    print("fig6 RMA-RW speedup (total time) over foMPI-RW / foMPI-A per "
+          "F_W: " + ", ".join(
+              f"{r['F_W']}: {r['fompi_rw_us'] / r['rma_rw_us']:.3f} / "
+              f"{r['fompi_a_us'] / r['rma_rw_us']:.3f}" for r in rows),
+          flush=True)
+    machine, layout, prog, masks = dht.fompi_a_setup(64, (0.05,))
+    env = engine.make_env(machine, layout, is_writer=masks[0], target_acq=4)
+    n_all, n_dev = ops_per_step(lambda steps: engine.run_sim(
+        prog, env, layout, seed=0, max_events=steps))
+    print(f"fig6 fompi_a_dht P=64 F_W 0.05: {n_all:.1f} torch ops per event "
+          f"step, {n_dev:.1f} of them on the card (crash-free handler "
+          "table)", flush=True)
+
+    # ---- the crash matrix: each (kind, crash time) one run of P lanes
+    with call_log(engine, "run_sim_batch") as calls:
+        payload, dt = timed(lambda: faults.bench_faults(quick=False))
+    print(f"faults bench_faults (quick=False) in {dt:.2f} s, {len(calls)} "
+          f"runs, their events per lane: "
+          f"{[c[3].events.tolist() for c in calls]}", flush=True)
+    for row in payload["rows"]:
+        print(f"  {row}", flush=True)
+    check(all(r["violations"] == 0 and r["all_completed"]
+              for r in payload["rows"]),
+          "faults: a violation, or a survivor did not complete")
+    check(payload == FAULTS_EXPECTED, f"faults payload differs from the "
+          f"reference's: {payload}")
+
+    # ---- examples/quickstart: its runs are sim_phase's quickstart ones
+    reset_dht_counts()
+    with call_log(Session, "run", "run_batch") as calls:
+        qs, dt = timed(lambda: quickstart.main("cuda"))
+    launches = dht_counts()
+    print(f"examples.quickstart in {dt:.2f} s, dht launches {launches}",
+          flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"the quickstart's DHT did not launch both kernels: {launches}")
+    d = qs["dht"]
+    check((d["inserted"], d["overflow"]) == QUICKSTART_DHT_EXPECTED
+          and d["all_found"] and d["values_ok"],
+          f"quickstart DHT {d}, reference {QUICKSTART_DHT_EXPECTED}")
+    check([c[0] for c in calls] == ["run", "run_batch", "run"],
+          f"quickstart ran {[c[0] for c in calls]}")
+    runs = {}
+    for method, args, kwargs, m, wall in calls:
+        sess = args[0]
+        name = QUICKSTART_SESSIONS[next(
+            k for k, v in qs["sessions"].items() if v is sess)]
+        cfg = SIM_CONFIGS[name]
+        check(sess.spec == make_spec(LockSpec, CostModel, cfg)
+              and all(getattr(sess, k) == v
+                      for k, v in cfg["session"].items()),
+              f"the quickstart's {name} session is not the configuration's")
+        entry = runs.setdefault(name, {"session": sess, "runs": {}})
+        if method == "run":
+            entry["runs"][kwargs.get("seed", args[1] if len(args) > 1
+                                     else 0)] = (m, wall)
+        else:
+            entry["batch"] = (m, wall)
+
+    # ---- examples/serve_kv: decode + request DHT + background swap ----
+    reset_dht_counts()
+    out, dt = timed(lambda: serve_kv.main("cuda"))
+    launches = dht_counts()
+    toks = out["tokens"]
+    print(f"examples.serve_kv in {dt:.2f} s, dht launches {launches}, "
+          f"store v{out['version']}", flush=True)
+    check(all(n > 0 for n in launches.values()),
+          f"serve_kv's DHT did not launch both kernels: {launches}")
+    check(bool(out["found"].all()) and torch.equal(
+        out["slots"].cpu(), torch.arange(serve_kv.BATCH, dtype=torch.int32)),
+          "serve_kv: a request was not found in its slot")
+    check(out["version"] == 1, f"serve_kv: store version {out['version']}")
+    check(tuple(toks.shape) == (serve_kv.BATCH, serve_kv.DECODE_STEPS)
+          and bool(((toks >= 0) & (toks < out["vocab"])).all()),
+          "serve_kv: tokens out of [0, vocab) or of the wrong shape")
+    return runs
 
 
 def main(argv=None) -> int:
@@ -1056,7 +1259,11 @@ def main(argv=None) -> int:
     kernels += serve_phase(args.seed)
     print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    sim_phase()
+    from_examples = fig6_phase()
+    print(f"fig6 / faults / examples phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    sim_phase(from_examples)
     print(f"simulator phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     grid_phase()

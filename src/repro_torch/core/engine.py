@@ -685,12 +685,22 @@ class Program:
     unreachable. `full` is used otherwise. The lease guards are most of
     a hierarchical step's ops, so the full table dispatches about 1.8x
     the ops per step of the crash-free one (`chip_smoke.py` prints
-    both)."""
+    both).
 
-    def __init__(self, env: Env, full, crash_free=None):
+    `draws` declares the random draws the handlers read from
+    `Ctx.draws` beyond the engine's own: {"slot": n} for
+    randint(split(sub)[0], 0, n), {"k2": True} for the uniform bits of
+    split(sub)[1] (see `_KeyStream`). A program that declares none gets
+    only the draws its env's jitter, think time and CS kind need."""
+
+    def __init__(self, env: Env, full, crash_free=None, draws=None):
         self.env = env
         self.full = tuple(full)
         self.crash_free = self.full if crash_free is None else tuple(crash_free)
+        self.draws = dict(draws or {})
+        if set(self.draws) - {"slot", "k2"}:
+            raise ValueError(f"a program may declare the draws 'slot' and "
+                             f"'k2', got {sorted(self.draws)}")
         kinds = torch.tensor([i.kind for i in self.full],
                              dtype=torch.int64, device=env.device)
         self.is_cs = kinds == CS
@@ -1060,26 +1070,34 @@ def _consts(env: Env, L: int) -> dict:
 class _KeyStream:
     """The per-lane key chain of the reference's loop (`key0 =
     PRNGKey(seed)`, then `key, sub = split(key)` once per event step),
-    with the uniform draws each step can consume, computed `n` steps at
-    a time on the host and moved to the device in one copy:
+    with the draws each step can consume, computed `n` steps at a time
+    on the host and moved to the device in one copy:
 
-      key: uniform bits of `sub` (finish_instr's jitter, think time)
-      k1:  uniform bits of split(sub)[0] (jitter of CS instructions)
-      k2:  uniform bits of split(sub)[1] (cs_kind=2 duration)
+      key:  uniform bits of `sub` (finish_instr's jitter, think time)
+      k1:   uniform bits of split(sub)[0] (jitter of CS instructions)
+      k2:   uniform bits of split(sub)[1] (cs_kind=2 duration, or a
+            program's declared uniform draw)
+      slot: randint(split(sub)[0], 0, n), declared by a program as
+            {"slot": n} (the DHT's random table slot)
 
-    Each is a float32 in [0, 1) before the final `* (hi - lo) + lo`.
+    The uniform draws are float32 in [0, 1) before the final
+    `* (hi - lo) + lo`; slot is int64. `draws` is the program's
+    declaration (`Program.draws`).
     """
 
-    def __init__(self, env: Env, seeds: torch.Tensor):
+    def __init__(self, env: Env, seeds: torch.Tensor, draws=None):
+        draws = draws or {}
         self.env = env
         self.need_key = env.cost.jitter > 0.0 or env.think
         self.need_k1 = env.cost.jitter > 0.0
-        self.need_k2 = env.cs_kind == 2
+        self.need_k2 = env.cs_kind == 2 or bool(draws.get("k2"))
+        self.n_slots = draws.get("slot")
         self.key = prng.PRNGKey(seeds.cpu())
 
     @property
     def needed(self) -> bool:
-        return self.need_key or self.need_k1 or self.need_k2
+        return (self.need_key or self.need_k1 or self.need_k2
+                or self.n_slots is not None)
 
     def chunk(self, n: int) -> dict:
         key, subs = self.key, []
@@ -1092,12 +1110,14 @@ class _KeyStream:
         out = {}
         if self.need_key:
             out["key"] = prng.unit_float(prng.random_bits32(sub))
-        if self.need_k1 or self.need_k2:
+        if self.need_k1 or self.need_k2 or self.n_slots is not None:
             kk = prng.split(sub)                              # [L, n, 2, 2]
             if self.need_k1:
                 out["k1"] = prng.unit_float(prng.random_bits32(kk[:, :, 0]))
             if self.need_k2:
                 out["k2"] = prng.unit_float(prng.random_bits32(kk[:, :, 1]))
+            if self.n_slots is not None:
+                out["slot"] = prng.randint(kk[:, :, 0], 0, self.n_slots)
         return {k: v.to(self.env.device) for k, v in out.items()}
 
 
@@ -1121,7 +1141,7 @@ def step_loop(prog: Program, max_events: int, st: SimState,
             raise ValueError(f"the env's {group!r} index has "
                              f"{pix.shape[0]} lanes, the state {L}")
     consts = _consts(prog.env, L)
-    stream = _KeyStream(prog.env, seeds)
+    stream = _KeyStream(prog.env, seeds, prog.draws)
     # A run where no process can crash takes the crash-free handlers.
     faults = bool((st.crashed | (st.crash_t < INF)).any())
     with torch.inference_mode():

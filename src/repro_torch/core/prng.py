@@ -8,10 +8,11 @@ a seed-for-seed comparison hold with jitter on. The reference runs with
 
   * `split(key)[i]`      = threefry2x32(key, (0, i))          (both words)
   * `uniform` bits       = w0 ^ w1 of threefry2x32(key, (0, 0))
+  * `randint`            = two such 32-bit draws from `split(key)`,
+                           combined by a modular span reduction
 
 Keys are int64 tensors of shape [..., 2] holding uint32 words (every
 operation masks back to 32 bits), batched over any leading axes.
-`randint` is not ported yet: nothing on this slice's path draws it.
 """
 from __future__ import annotations
 
@@ -99,3 +100,28 @@ def uniform(key: torch.Tensor, lo: float = 0.0, hi: float = 1.0
     """`jax.random.uniform(key, (), float32, lo, hi)` for every key in
     the [..., 2] batch."""
     return scale_uniform(unit_float(random_bits32(key)), lo, hi)
+
+
+def randint(key: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """`jax.random.randint(key, (), minval, maxval)` for int32 bounds,
+    for every key in the [..., 2] batch (int64 values in [minval,
+    maxval); minval where maxval <= minval). JAX's `_randint`: two
+    32-bit draws, higher from split(key)[0] and lower from
+    split(key)[1], reduced modulo the span by
+    ((higher % span) * multiplier + lower % span) % span, with
+    multiplier = (2**16 % span)**2 % span, every step in uint32
+    arithmetic that wraps (the square is 2**32, i.e. 0, once span
+    passes 2**16)."""
+    minval, maxval = int(minval), int(maxval)
+    for v in (minval, maxval):
+        if not -2**31 <= v < 2**31:
+            raise ValueError(f"randint bounds must be int32 values, got {v}")
+    ks = split(key)
+    higher = random_bits32(ks[..., 0, :])
+    lower = random_bits32(ks[..., 1, :])
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    multiplier = ((2**16 % span) ** 2 & _M32) % span
+    offset = ((higher % span) * multiplier) & _M32
+    offset = ((offset + lower % span) & _M32) % span
+    # minval + offset in int32, which wraps as XLA's add does.
+    return ((minval + offset + 2**31) & _M32) - 2**31

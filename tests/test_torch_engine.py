@@ -116,6 +116,27 @@ def test_crash_fault_run_matches_reference(kw):
     assert int(got.violations) == 0 and bool(got.completed)
 
 
+def test_reference_recovery_livelock_is_reproduced():
+    """The reference's rma_mcs recovery livelocks when victim 3 of P=4
+    (fanout (2,), T_L (2, 2)) crashes at 2.0 us under seed 5: survivor
+    2 never acquires and the run spins to its event cap (a falsifying
+    example of tests/test_faults.py's property test). The port, a copy
+    of the protocol, does the same, bit for bit, cut at 1000 events."""
+    kw = dict(kind="rma_mcs", P=4, fanout=(2,), T_L=(2, 2))
+    ref = RefSession(RefSpec(**kw), target_acq=3)
+    m_ref = ref_engine.run_sim(
+        ref.program, ref.env, ref.layout, seed=5, max_events=1000,
+        fault=ref_engine.FaultPlan.single(4, victim=3, t=2.0))
+    sess = Session(LockSpec(**kw), target_acq=3, device="cpu")
+    got = engine.run_sim(sess.program, sess.env, sess.layout, seed=5,
+                         max_events=1000,
+                         fault=engine.FaultPlan.single(4, victim=3, t=2.0))
+    assert_metrics_equal(m_ref, got)
+    assert int(got.events) == 1000 and not bool(got.completed)
+    assert got.per_proc_acq.tolist() == [3, 3, 0, 0]
+    assert int(got.violations) == 0 and int(got.reclaims) == 2
+
+
 def test_run_continued_from_reference_state():
     """A reference state stopped after 300 events, continued under
     another seed by both implementations, ends in the same state."""

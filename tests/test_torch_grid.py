@@ -7,6 +7,12 @@ lattice point must equal a fresh per-point port session: a lattice run
 stacks each point's tables (padded counter layouts for T_DC) and runs
 every (point, seed) pair as a lane of one run, which must change no
 dynamics. Uses the reference's P=8 `SMALL_RW` of tests/test_grid_tuner.py.
+
+The reference compiles its simulator anew for each sweep axis (~20 s on
+a CPU), but once per grid shape: its T_L and T_R sweeps are read off
+one-axis grids of one shared session (`ref_sweep`), which the reference
+holds bitwise equal to its sweeps and its fresh sessions, so the two
+axes share one compile.
 """
 import numpy as np
 import pytest
@@ -51,6 +57,20 @@ def ref_sessions():
             for k, kw in SPECS.items()}
 
 
+def ref_sweep(ref_session, axis, values):
+    """The reference's sweep along `axis`, [len(values), len(SEEDS)]:
+    for T_L and T_R, a one-axis grid of the session (one compiled shape
+    for both axes); for the other axes, its sweep."""
+    if axis not in ("T_L", "T_R"):
+        return ref_session.sweep(axis, values, seeds=SEEDS)
+    spec = ref_session.spec
+    axes = {"T_DC": [spec.T_DC], "T_L": [spec.T_L], "T_R": [spec.T_R]}
+    axes[axis] = values
+    m = ref_session.grid(axes["T_DC"], axes["T_L"], axes["T_R"], seeds=SEEDS)
+    return type(m)(*(np.asarray(leaf).reshape(
+        (len(values),) + np.shape(leaf)[3:]) for leaf in m))
+
+
 def session(kw, **replace) -> Session:
     return Session(LockSpec(**kw).replace(**replace), target_acq=3,
                    max_events=MAX_EVENTS, device="cpu")
@@ -62,7 +82,7 @@ def test_sweep_matches_reference_and_fresh_sessions(ref_sessions, kind, axis,
                                                     values):
     m = session(SPECS[kind]).sweep(axis, values, seeds=SEEDS)
     assert m.events.shape == (len(values), len(SEEDS))
-    assert_bitwise(m, ref_sessions[kind].sweep(axis, values, seeds=SEEDS),
+    assert_bitwise(m, ref_sweep(ref_sessions[kind], axis, values),
                    (kind, axis))
     assert int(m.violations.sum()) == 0 and bool(m.completed.all())
     for k, v in enumerate(values):

@@ -40,7 +40,11 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core, repro_torch.dht, "
             "repro_torch.kernels.ops, repro_torch.configs, repro_torch.data, "
             "repro_torch.models.lm, repro_torch.models.convert, "
-            "repro_torch.serve, repro_torch.launch.serve; "
+            "repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.core.programs.dht, repro_torch.bench.dht, "
+            "repro_torch.bench.faults, repro_torch.bench.kernels, "
+            "repro_torch.bench.run, repro_torch.examples.quickstart, "
+            "repro_torch.examples.lock_demo, repro_torch.examples.serve_kv; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -85,6 +89,23 @@ def test_lm_and_launcher_default_to_cuda_and_raise_without_it(no_cuda):
         serve.main(["--arch", "qwen2-0.5b", "--smoke"])
     model = lm.init_params(cfg, torch.Generator(), device="cpu")
     assert model.embed.tok.device.type == "cpu"
+
+
+def test_benchmarks_and_examples_default_to_cuda_and_raise_without_it(
+        no_cuda):
+    from repro_torch.bench import dht, faults, kernels, run
+    from repro_torch.examples import lock_demo, quickstart, serve_kv
+
+    for call in (lambda: dht.bench_dht(ps=(4,)),
+                 lambda: dht.bench_batched_table(),
+                 lambda: faults.bench_faults(quick=True),
+                 lambda: faults.main(["--quick"]),
+                 lambda: kernels.bench_kernels(),
+                 lambda: run.main(["--only", "faults"]),
+                 lambda: quickstart.main(), lambda: lock_demo.main(),
+                 lambda: serve_kv.main()):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(no_cuda, capsys):
