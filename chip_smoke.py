@@ -74,6 +74,17 @@ Phases, each fails the run if it fails:
      reference's winner with its per-seed throughputs, which a fresh
      session reproduces. Prints the grid's torch ops per event step,
      wall times, and each tuning round's lanes and rates.
+  7. locklint (`repro_torch.analysis`): every lock kind's `--quick`
+     configurations, the foMPI-A DHT program (model seeds 0-3) and the
+     layout lattice on the card, with zero findings and every config's
+     states, edges, interleavings and cap equal to the reference's
+     (LOCKLINT_EXPECTED), then every lock configuration of `--all` the
+     same way; prints each config's wall time, breadth-first levels,
+     widest level's lanes and states per second, and the torch ops of
+     one model-checker step. The four seeded
+     mutants must each be caught by the pass that owns it. The runtime
+     sanitizer must run an rma_rw P=4 schedule clean (equal to the
+     unchecked run) and trap a write to a padded dead counter slot.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the card's name and power limit, and the line before that the
@@ -251,6 +262,75 @@ QUICKSTART_DHT_EXPECTED = (186, 14)
 # examples/quickstart (session name in its rw_demo -> configuration).
 QUICKSTART_SESSIONS = {"rma_rw": "quickstart_rma_rw",
                        "fompi_rw": "quickstart_fompi_rw"}
+
+# ------------------------------------------------------------- locklint
+# (kind, config label) -> (states, edges, interleavings (counted up to
+# 50000), state cap hit) of every configuration of the JAX reference's
+# locklint, pinned from `PYTHONPATH=src JAX_PLATFORMS=cpu python -m
+# repro.analysis.locklint --all` at commit ce3c076 (src/repro/ is the
+# same in every later commit of the port); the DHT row sums its model
+# seeds 0-3. tests/test_torch_locklint.py holds the rows of the quick
+# configurations and of five others against the reference, and the
+# whole table against the port, on the CPU.
+LOCKLINT_EXPECTED = {
+    ('d_mcs', 'P=2 acq=2'):
+        (1453, 2646, 50000, False),
+    ('d_mcs', 'P=3 acq=1'):
+        (3440, 8757, 50000, False),
+    ('d_mcs', 'P=2 acq=2 crash=p0'):
+        (3571, 5889, 50000, False),
+    ('d_mcs', 'P=3 acq=1 crash=p0'):
+        (8596, 20366, 50000, False),
+    ('fompi_rw', 'P=2 wf=0.5 acq=2'):
+        (125, 226, 50000, False),
+    ('fompi_rw', 'P=3 wf=0.34 acq=2'):
+        (1459, 3958, 50000, False),
+    ('fompi_rw', 'P=2 wf=0.5 acq=2 crash=p0'):
+        (309, 506, 50000, False),
+    ('fompi_rw', 'P=2 wf=0.5 acq=2 crash=p1'):
+        (327, 522, 50000, False),
+    ('fompi_rw', 'P=3 wf=0.67 acq=1 crash=p0'):
+        (445, 977, 50000, False),
+    ('fompi_spin', 'P=2 acq=2'):
+        (65, 112, 278, False),
+    ('fompi_spin', 'P=3 acq=2'):
+        (425, 1080, 50000, False),
+    ('fompi_spin', 'P=2 acq=2 crash=p0'):
+        (161, 252, 980, False),
+    ('rma_mcs', 'P=2 fanout=(1,) T_DC=1 T_L=(1, 2) T_R=67108864 acq=2'):
+        (3895, 7234, 50000, False),
+    ('rma_mcs', 'P=2 fanout=(2,) T_DC=1 T_L=(2, 1) T_R=67108864 acq=2'):
+        (3151, 5910, 50000, False),
+    ('rma_mcs', 'P=3 fanout=(3,) T_DC=1 T_L=(1, 1) T_R=67108864 acq=1'):
+        (9606, 25683, 50000, False),
+    ('rma_mcs', 'P=2 fanout=(1,) T_DC=1 T_L=(1, 2) T_R=67108864 acq=2 crash=p0'):
+        (10150, 16689, 50000, False),
+    ('rma_mcs', 'P=2 fanout=(2,) T_DC=1 T_L=(2, 1) T_R=67108864 acq=2 crash=p0'):
+        (7720, 13133, 50000, False),
+    ('rma_mcs', 'P=3 fanout=(3,) T_DC=1 T_L=(1, 1) T_R=67108864 acq=1 crash=p0'):
+        (24409, 60426, 50000, False),
+    ('rma_rw', 'P=2 fanout=(2,) T_DC=1 T_L=(1, 1) T_R=1 wf=0.5 acq=2'):
+        (1316, 2518, 50000, False),
+    ('rma_rw', 'P=2 fanout=(1,) T_DC=1 T_L=(1, 2) T_R=1 wf=1.0 acq=2'):
+        (5319, 9930, 50000, False),
+    ('rma_rw', 'P=2 fanout=(2,) T_DC=1 T_L=(1, 1) T_R=1 wf=1.0 acq=2'):
+        (4425, 8438, 50000, False),
+    ('rma_rw', 'P=3 fanout=(3,) T_DC=1 T_L=(1, 1) T_R=1 wf=0.34 acq=1'):
+        (1988, 5178, 50000, False),
+    ('rma_rw', 'P=2 fanout=(2,) T_DC=1 T_L=(1, 1) T_R=1 wf=0.5 acq=2 crash=p0'):
+        (3075, 5463, 50000, False),
+    ('rma_rw', 'P=2 fanout=(2,) T_DC=1 T_L=(1, 1) T_R=1 wf=0.5 acq=2 crash=p1'):
+        (3043, 5434, 50000, False),
+    ('rma_rw', 'P=2 fanout=(1,) T_DC=1 T_L=(1, 2) T_R=1 wf=1.0 acq=2 crash=p0'):
+        (15186, 24227, 50000, False),
+    ('rma_rw', 'P=2 fanout=(2,) T_DC=1 T_L=(1, 1) T_R=1 wf=1.0 acq=2 crash=p0'):
+        (11923, 19813, 50000, False),
+    ('fompi_a_dht', 'P=3 table=4 wf=0.34'):
+        (1154, 2946, 50000, False),
+}
+# The rma_rw configuration the runtime sanitizer must run clean.
+SANITIZED_RW = dict(kind="rma_rw", P=4, fanout=(2,), T_DC=2, T_L=(1, 2),
+                    T_R=2, writer_fraction=0.5)
 
 
 def f64_bits(x) -> int:
@@ -505,6 +585,11 @@ def ssd_bound(x, dt, A, B, C, chunk: int):
     return bound(flops, H100_F32_FLOP_S, nbytes) + (flops, nbytes)
 
 
+# A kernel timed under its bound by more than this factor was mis-timed
+# (the profiler lost records), not fast.
+BOUND_SLACK = 1.05
+
+
 def bound(flops: float, rate: float, nbytes: float):
     ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
@@ -630,6 +715,12 @@ def attention_row(kind: str, args, kwargs, launches: int) -> dict:
     turns = [cuda_ms(run, 20), cuda_ms(sdpa, 20), cuda_ms(run, 20)]
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), 5)
     bound_ms, by, flops, nbytes = attention_bound(*args, **kwargs)
+    check(len(passes) == 1 and all(c == 1 for c, _ in passes.values()),
+          f"flash_attention ({kind}) launched {passes} per call, not one "
+          "kernel once")
+    check(ms >= bound_ms / BOUND_SLACK,
+          f"flash_attention ({kind}) timed at {ms} ms, under its bound "
+          f"{bound_ms} ms: the trace lost time")
     print(f"flash_attention ({kind}, {dtype}): {ms:.4f} ms device time "
           f"({', '.join(f'{k} x{c:g}' for k, (c, _) in passes.items())}; "
           f"CUDA events in turns: kernel {turns[0]:.4f}, SDPA "
@@ -680,6 +771,10 @@ def ssd_row(args, kwargs, launches: int) -> dict:
     ms = sum(turns) / 2
     plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(*args, **kwargs), 5)
     bound_ms, by, flops, nbytes = ssd_bound(*args, **kwargs)
+    traced_ms = sum(t for _, t in passes.values())
+    check(min(ms, traced_ms) >= bound_ms / BOUND_SLACK,
+          f"ssd_scan timed at {ms} ms (traced {traced_ms} ms), under its "
+          f"bound {bound_ms} ms")
     print(f"ssd_scan: {ms:.4f} ms (turns {turns[0]:.4f}, {turns[1]:.4f}; "
           f"plain {plain_ms:.4f} ms, library None ms) on layer 0's inputs "
           f"{[tuple(t.shape) for t in args]} {kwargs}; bound "
@@ -796,32 +891,42 @@ def serve_phase(seed: int) -> list:
     return rows
 
 
-def kernel_times(fn, prefix: str, n: int = 10) -> dict:
+def kernel_times(fn, prefix: str, n: int = 10, tries: int = 3) -> dict:
     """{CUDA kernel: (launches per call, device ms per call)} of fn(),
     for the kernels whose name contains `prefix`, from torch.profiler
     over n calls after one warm-up. Only the device is traced, so no
-    host op also carries its kernels' time."""
+    host op also carries its kernels' time. The profiler can drop a
+    kernel's records (one run saw 2 of 10 launches, and so a fifth of
+    the time per call): a trace where some kernel's launches are not a
+    whole number per call is taken again, and after `tries` the run
+    fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        # "void (anonymous namespace)::ssd_cb<true>(float const*, ...)"
-        found = re.search(r"(\w+(?:<[^>(]*>)?)\(", ev.key)
-        name = found.group(1) if found else ev.key
-        if prefix not in name:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0:
-            out[name] = (ev.count / n, us / n / 1e3)
-    return out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out, whole = {}, True
+        for ev in prof.key_averages():
+            # "void (anonymous namespace)::ssd_cb<true>(float const*, ...)"
+            found = re.search(r"(\w+(?:<[^>(]*>)?)\(", ev.key)
+            name = found.group(1) if found else ev.key
+            if prefix not in name:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if us > 0:
+                out[name] = (ev.count / n, us / n / 1e3)
+                whole = whole and ev.count % n == 0
+        if whole:
+            return out
+        print(f"  torch.profiler dropped launches: {out}; tracing again",
+              flush=True)
+    fail(f"torch.profiler dropped launches in {tries} traces: {out}")
 
 
 def count_sass(lib: Path, opcode: str) -> int:
@@ -1219,6 +1324,145 @@ def fig6_phase() -> dict:
     return runs
 
 
+def model_step_ops(program, env, layout, victim) -> float:
+    """Torch ops that one model-checker step dispatches (one `_exec`
+    call over the initial state's enabled processes, the state's copy
+    to the card and the successors' copy back included), after an
+    uncounted call that builds the merge plan and cached constants."""
+    import numpy as np
+
+    from repro_torch.analysis import model
+    ex = model.Explorer(program, env, layout, crash_victim=victim)
+    c0 = ex.init_canon()
+    cols = model.Canon(*(np.asarray(x)[None] for x in c0))
+    _, ps = np.nonzero(~(cols.done | cols.crashed))
+    cols = model.Canon(*(x[np.zeros(len(ps), int)] for x in cols))
+    ex.successors(cols, ps)
+    return count_ops(lambda: ex.successors(cols, ps))[0]
+
+
+def locklint_phase():
+    """locklint on the card: every configuration of `--all`, the DHT
+    program and the layout lattice in one pass (zero findings, counts ==
+    LOCKLINT_EXPECTED; the quick subset's time summed from it), the four
+    seeded mutants (each caught by its pass) and the runtime sanitizer
+    (a clean run equal to the unchecked one; the dead-counter write
+    trapped)."""
+    import numpy as np
+
+    from repro_torch.analysis import locklint, mutants
+    from repro_torch.core import LockSpec, Session, engine
+    from repro_torch.core.engine import DONE, Effect, Instr, Program
+    from repro_torch.core.programs.dht import FompiADHT
+    from repro_torch.core.window import build_layout
+
+    def every_config():
+        stats, findings = [], []
+        for kind in sorted(locklint.CONFIGS):
+            f, st = locklint.check_kind(kind, device="cuda")
+            findings += f
+            stats += st
+        f, st = locklint.check_dht(device="cuda")
+        findings += f + locklint.check_layout_lattice()
+        return stats + st, findings
+
+    (stats, findings), dt = timed(every_config)
+    print(f"locklint --all (and the layout lattice): {len(stats)} configs, "
+          f"{sum(st.n_states for st in stats)} states in {dt:.2f} s, "
+          f"{len(findings)} findings", flush=True)
+    for f in findings:
+        print(f"  {f}", flush=True)
+    check(not findings, f"locklint: {len(findings)} findings")
+    for st in stats:
+        key = (st.kind, st.config)
+        got = (st.n_states, st.n_edges, st.n_interleavings, st.capped)
+        print(f"  {st.kind} {st.config}: {st.n_states} states, "
+              f"{st.n_edges} edges, {st.n_interleavings}"
+              f"{'+' if st.interleavings_capped else ''} interleavings; "
+              f"{st.seconds:.2f} s, {st.levels} levels, widest "
+              f"{st.widest} lanes, {st.n_states / st.seconds:.0f} "
+              "states/s", flush=True)
+        check(got == LOCKLINT_EXPECTED.get(key),
+              f"locklint {key}: {got}, reference {LOCKLINT_EXPECTED.get(key)}")
+    check(len(stats) == len(LOCKLINT_EXPECTED),
+          f"locklint ran {len(stats)} configs, LOCKLINT_EXPECTED holds "
+          f"{len(LOCKLINT_EXPECTED)}")
+    # The --quick subset (the DHT program is in it) from the same pass.
+    quick = {(k, c.label) for k, cfgs in locklint.CONFIGS.items()
+             for c in cfgs if c.quick}
+    sub = [st for st in stats
+           if (st.kind, st.config) in quick or st.kind == "fompi_a_dht"]
+    print(f"locklint --all --quick subset: {len(sub)} configs, "
+          f"{sum(st.n_states for st in sub)} states in "
+          f"{sum(st.seconds for st in sub):.2f} s", flush=True)
+
+    # Torch ops per model-checker step, one quick configuration of each
+    # program: the crash-free and the full handler table.
+    for kind in sorted(locklint.CONFIGS):
+        for cfg in [c for c in locklint.CONFIGS[kind] if c.quick]:
+            s = Session(cfg.spec(), target_acq=cfg.target_acq, cs_kind=0,
+                        think=False)
+            n = model_step_ops(s.program, s.env, s.layout, cfg.crash_victim)
+            print(f"locklint {kind} {cfg.label}: {n} torch ops per model "
+                  "step", flush=True)
+    spec = LockSpec(kind="fompi_spin", P=3)
+    machine = spec.machine()
+    layout = spec.layout(machine, extra_words=5)
+    W = layout.W
+    mask = np.array([True, False, False])
+    n = model_step_ops(
+        FompiADHT(np.arange(W - 5, W - 1), W - 1, mask),
+        engine.make_env(machine, layout, is_writer=mask, target_acq=2),
+        layout, None)
+    print(f"locklint fompi_a_dht P=3: {n} torch ops per model step",
+          flush=True)
+
+    # ---- the seeded mutants: each caught by the pass that owns it ----
+    for cls in mutants.OWNERS:
+        s = Session(LockSpec(kind="fompi_spin", P=2), target_acq=2,
+                    cs_kind=0, think=False)
+        prog = cls()
+        found, dt = timed(lambda: locklint.check_config(
+            prog, s.env, s.layout, prog.meta(s.env), "mutant")[0])
+        print(f"locklint mutant {cls.__name__}: {len(found)} findings in "
+              f"{dt:.2f} s, caught by {mutants.OWNERS[cls][0]}: "
+              f"{mutants.caught(cls, found)}", flush=True)
+        check(mutants.caught(cls, found),
+              f"mutant {cls.__name__} not caught: {[str(f) for f in found]}")
+
+    # ---- the runtime sanitizer ---------------------------------------
+    s = Session(LockSpec(**SANITIZED_RW), target_acq=2, cs_kind=0,
+                think=False)
+    plain, dt0 = timed(lambda: s.run(0))
+    with engine.runtime_checks(True):
+        checked, dt1 = timed(lambda: s.run(0))
+    print(f"sanitizer rma_rw P=4: clean, events {int(checked.events)}; "
+          f"{dt0:.2f} s unchecked, {dt1:.2f} s checked", flush=True)
+    check(bool(checked.completed) and int(checked.violations) == 0
+          and same(checked, plain), "sanitizer: the checked run differs")
+    machine = LockSpec(kind="fompi_spin", P=2).machine()
+    lay = build_layout(machine, T_DC=1, pad_counters_to=machine.P + 2)
+    env = engine.make_env(machine, lay, is_writer=np.ones(2, bool),
+                          target_acq=1)
+    dead = int(np.asarray(lay.arrive_w)[-1])
+    prog = Program(env, (
+        Instr(lambda c: Effect(dur=1.0, writes=(dead,), next_pc=1,
+                               stores=((dead, c.win(dead) + 1),))),
+        Instr(lambda c: Effect(dur=0.0, next_pc=1), DONE)))
+    st0 = engine.init_state(env, lay, np.zeros(2, np.int32), 1)
+    try:
+        with engine.runtime_checks(True):
+            engine.step_loop(prog, 1000, st0, [0])
+        trapped = None
+    except RuntimeError as err:
+        trapped = str(err)
+    print(f"sanitizer dead-counter write: {trapped}", flush=True)
+    check(trapped is not None and "is a padded dead counter slot" in trapped,
+          "sanitizer: the dead-counter write was not trapped")
+    check(int(engine.step_loop(prog, 1000, st0, [0]).events[0]) > 0,
+          "the dead-counter program did not run without the sanitizer")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1268,6 +1512,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     grid_phase()
     print(f"grid phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    locklint_phase()
+    print(f"locklint phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

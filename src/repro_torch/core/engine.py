@@ -45,11 +45,28 @@ table again. Clamping an index i into [-n, 2n) and indexing with it
 
 The engine is launch-bound by design: one event step is on the order
 of a thousand small tensor ops.
+
+An event step is two parts: `_select` picks each lane's process and
+time, `_exec` runs that process's instruction. The model checker
+(`repro_torch.analysis.model`) calls `_exec` alone, with its own
+process per lane.
+
+Opt-in runtime sanitizer (`REPRO_CHECKS=1` in the environment, or
+`with runtime_checks(True):`), the counterpart of the reference's
+checkify path: every step of `step_loop` also checks, on the lanes that
+run an instruction, the raw window and register indices the selected
+handler computed (`RecordingCtx`) and its declared words (hot word,
+writes, watch words: in [-1, W) and never a padded dead counter slot)
+and duration (>= 0). The first error of each lane is kept in a per-lane
+tensor, read at the loop's once-per-chunk host sync and raised as a
+RuntimeError. Off by default, and then no op of a step changes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -70,6 +87,29 @@ DONE = 2    # acquire accounting (acq_count/done, t_attempt := finish);
 
 # Host syncs ("any lane still pending?") happen once per chunk of steps.
 CHECK_EVERY = 64
+
+_RUNTIME_CHECKS_OVERRIDE: bool | None = None
+
+
+def checks_enabled() -> bool:
+    """Whether runs go through the runtime sanitizer."""
+    if _RUNTIME_CHECKS_OVERRIDE is not None:
+        return _RUNTIME_CHECKS_OVERRIDE
+    return os.environ.get("REPRO_CHECKS", "0").lower() not in (
+        "", "0", "false", "no")
+
+
+@contextlib.contextmanager
+def runtime_checks(enable: bool = True):
+    """Force the runtime sanitizer on (or off) within a scope,
+    overriding the REPRO_CHECKS environment variable."""
+    global _RUNTIME_CHECKS_OVERRIDE
+    prev = _RUNTIME_CHECKS_OVERRIDE
+    _RUNTIME_CHECKS_OVERRIDE = bool(enable)
+    try:
+        yield
+    finally:
+        _RUNTIME_CHECKS_OVERRIDE = prev
 
 
 def resolve_device(device) -> torch.device:
@@ -648,6 +688,60 @@ class Ctx:
             self.draws["key"], 1.0, 4.0))
 
 
+CH_WINDOW = "window"        # window word gathers (`Ctx.win`)
+CH_REGS = "regs"            # register gathers (`Ctx.reg`, `Ctx.reg_at`)
+
+
+class RecordingCtx(Ctx):
+    """A Ctx that notes the raw index of every window and register
+    gather, before the JAX-style wrap and clamp, with the handler that
+    computed it: `log` holds (handler, channel, index), the index a
+    Python int or an [L] tensor. `evaluate` sets the handler of each
+    call. A memoized value notes its gathers again for every handler
+    that reads it, so each handler's entries are its own footprint.
+    Window and register writes are read off the handlers' Effects.
+
+    The runtime sanitizer checks these indices on the lanes that select
+    the handler; `repro_torch.analysis.trace` reads them per lane."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.handler = -1
+        self.log = []
+        self._memo_log = {}
+
+    def evaluate(self, instrs) -> list:
+        """Every instruction's Effect, each call under its own index."""
+        effs = []
+        for i, ins in enumerate(instrs):
+            self.handler = i
+            effs.append(ins.fn(self))
+        self.handler = -1
+        return effs
+
+    def memo(self, key, fn):
+        noted = self._memo_log.get(key)
+        if noted is not None:
+            self.log.extend((self.handler, ch, i) for _, ch, i in noted)
+            return self._memo[key]
+        start = len(self.log)
+        v = super().memo(key, fn)
+        self._memo_log[key] = self.log[start:]
+        return v
+
+    def reg(self, i: int) -> torch.Tensor:
+        self.log.append((self.handler, CH_REGS, i))
+        return super().reg(i)
+
+    def reg_at(self, idx: torch.Tensor) -> torch.Tensor:
+        self.log.append((self.handler, CH_REGS, idx))
+        return super().reg_at(idx)
+
+    def win(self, w) -> torch.Tensor:
+        self.log.append((self.handler, CH_WINDOW, w))
+        return super().win(w)
+
+
 def _ext_rows(x: torch.Tensor) -> torch.Tensor:
     """[L, n] -> [L, 3n] extension of each row (see `_ext_np`)."""
     n = x.shape[1]
@@ -876,9 +970,17 @@ def _row(x: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
 
 
 def _step(prog: Program, st: SimState, draws: dict, max_events: int,
-          consts: dict, faults: bool = True) -> SimState:
+          consts: dict, faults: bool = True, san=None) -> SimState:
     """One event step on every lane (the reference's `step_loop` body,
     including its loop condition as a per-lane mask)."""
+    p, now, hm, fm = _select(st, max_events, consts)
+    return _exec(prog, st, p, now, draws, consts, faults, hm, fm, san)
+
+
+def _select(st: SimState, max_events: int, consts: dict):
+    """Each lane's process p (the smallest ready time, first on ties),
+    its time `now`, and the lanes that run p's instruction (`hm`) or
+    crash or revive p (`fm`)."""
     inf = consts["inf"]
     parked = st.crashed & (st.t_ready >= inf)
     off = st.done | parked
@@ -888,17 +990,29 @@ def _step(prog: Program, st: SimState, draws: dict, max_events: int,
     p1 = p[:, None]
     now = tr.gather(1, p1)[:, 0]
     fault = _row(st.crashed, p1) | (now >= _row(st.crash_t, p1))
-    hm = act & ~fault                     # lanes that run an instruction
-    fm = act & fault                      # lanes that crash or revive p
+    return p, now, act & ~fault, act & fault
 
-    ctx = Ctx(prog.env, st, p, now, draws, consts, faults)
-    effs = [ins.fn(ctx) for ins in prog.instrs(faults)]
+
+def _exec(prog: Program, st: SimState, p: torch.Tensor, now: torch.Tensor,
+          draws: dict, consts: dict, faults: bool, hm: torch.Tensor,
+          fm: torch.Tensor, san=None) -> SimState:
+    """Run process p[l]'s current instruction at time now[l] on the `hm`
+    lanes, and the fault event of p[l] on the `fm` lanes; other lanes
+    are left as they are. `san` is the step loop's `_Sanitizer` when
+    runtime checks are on."""
+    if san is None:
+        ctx = Ctx(prog.env, st, p, now, draws, consts, faults)
+        effs = [ins.fn(ctx) for ins in prog.instrs(faults)]
+    else:
+        ctx = RecordingCtx(prog.env, st, p, now, draws, consts, faults)
+        effs = ctx.evaluate(prog.instrs(faults))
     eff = _merge(ctx, prog, effs, faults)
-    return _apply(prog, st, ctx, eff, hm, fm, draws, consts, faults)
+    return _apply(prog, st, ctx, eff, hm, fm, draws, consts, faults, san,
+                  effs)
 
 
-def _apply(prog, st, ctx, eff, hm, fm, draws, consts,
-           faults) -> SimState:
+def _apply(prog, st, ctx, eff, hm, fm, draws, consts, faults, san=None,
+           effs=None) -> SimState:
     """The shared tail: finish_instr + cs_enter/cs_exit + acquire
     accounting on `hm` lanes, `_fault_event` on `fm` lanes."""
     env = prog.env
@@ -912,6 +1026,8 @@ def _apply(prog, st, ctx, eff, hm, fm, draws, consts,
     # finish = start + dur + jitter, in this order.
     dur = torch.where(cs_sel, ctx.cs_dur, eff["dur"])
     dur = torch.where(is_done, ctx.think_dur, dur)
+    if san is not None:
+        san.check(ctx, effs, eff, dur, hm)
     if cost.jitter > 0.0:
         unit = torch.where(cs_sel, draws["k1"], draws["key"])
         jit = prng.scale_uniform(unit, 0.0, cost.jitter)
@@ -1106,19 +1222,127 @@ class _KeyStream:
             key = ks[:, 0]
             subs.append(ks[:, 1])
         self.key = key
-        sub = torch.stack(subs, dim=1)                       # [L, n, 2]
+        return self.draws_of(torch.stack(subs, dim=1))       # [L, n, 2]
+
+    def draws_of(self, sub: torch.Tensor) -> dict:
+        """The draws of step keys `sub` ([..., 2], on the host), each
+        [...] on the env's device. The model checker passes one key per
+        lane, as the reference passes its model key as the step key."""
         out = {}
         if self.need_key:
             out["key"] = prng.unit_float(prng.random_bits32(sub))
         if self.need_k1 or self.need_k2 or self.n_slots is not None:
-            kk = prng.split(sub)                              # [L, n, 2, 2]
+            kk = prng.split(sub)                              # [..., 2, 2]
             if self.need_k1:
-                out["k1"] = prng.unit_float(prng.random_bits32(kk[:, :, 0]))
+                out["k1"] = prng.unit_float(prng.random_bits32(kk[..., 0, :]))
             if self.need_k2:
-                out["k2"] = prng.unit_float(prng.random_bits32(kk[:, :, 1]))
+                out["k2"] = prng.unit_float(prng.random_bits32(kk[..., 1, :]))
             if self.n_slots is not None:
-                out["slot"] = prng.randint(kk[:, :, 0], 0, self.n_slots)
+                out["slot"] = prng.randint(kk[..., 0, :], 0, self.n_slots)
         return {k: v.to(self.env.device) for k, v in out.items()}
+
+
+class _Sanitizer:
+    """The runtime checks of one `step_loop` (see the module docstring).
+
+    Per lane, the first failed check is kept: its message's index
+    (`code`, 0 = none) and value (`val`, or `fval` for a duration).
+    Index checks take a raw index i into an axis of size n as JAX does:
+    valid iff -n <= i < n (a negative index wraps once)."""
+
+    def __init__(self, env: Env, L: int):
+        dev = env.device
+        C = env.ext["arrive"].shape[-1] // 3
+        arrive = env.ext["arrive"].cpu().numpy()[..., :C].reshape(-1, C)
+        depart = env.ext["depart"].cpu().numpy()[..., :C].reshape(-1, C)
+        n_ctr = np.broadcast_to(np.asarray(
+            env.n_ctr.cpu() if isinstance(env.n_ctr, torch.Tensor)
+            else env.n_ctr), (arrive.shape[0],))
+        dead = np.zeros((arrive.shape[0], env.W), bool)
+        for k, n in enumerate(n_ctr):
+            dead[k, arrive[k, n:]] = True
+            dead[k, depart[k, n:]] = True
+        dead = torch.as_tensor(dead, device=dev)
+        pix = env.lanes.get("layout")
+        self.dead = (dead[0].expand(L, -1) if pix is None else dead[pix])
+        self.code = torch.zeros(L, dtype=torch.int64, device=dev)
+        self.val = torch.zeros(L, dtype=torch.int64, device=dev)
+        self.fval = torch.zeros(L, dtype=torch.float32, device=dev)
+        self.messages = []
+        self._codes = {}
+
+    def _code(self, message: str) -> int:
+        c = self._codes.get(message)
+        if c is None:
+            self.messages.append(message)
+            c = self._codes[message] = len(self.messages)
+        return c
+
+    def check(self, ctx: Ctx, effs, eff: dict, dur: torch.Tensor,
+              hm: torch.Tensor):
+        """Check one step's selected handlers on the `hm` lanes."""
+        dev, W, R = ctx.env.device, ctx.env.W, ctx.regs.shape[1]
+        index = []                  # (handler, what, size, raw index)
+        for h, ch, i in ctx.log:
+            index.append((h, f"{ch} gather", W if ch == CH_WINDOW else R, i))
+        for h, e in enumerate(effs):
+            index += [(h, "window scatter", W, s[0]) for s in e.stores]
+            if e.reg_at is not None:
+                index.append((h, "regs scatter", R, e.reg_at[0]))
+            index += [(h, "regs scatter", R, r) for r in (e.regs or {})]
+        bads, vals, codes = [], [], []
+        if index:
+            ix = torch.stack([i.expand(ctx.L) if isinstance(i, torch.Tensor)
+                              else ctx.const(int(i)) for *_, i in index])
+            hid = torch.tensor([h for h, *_ in index], device=dev)
+            n = torch.tensor([n for _, _, n, _ in index], device=dev)[:, None]
+            bads.append((eff["idx"] == hid[:, None])
+                        & ((ix < -n) | (ix >= n)))
+            vals.append(ix)
+            codes += [self._code(
+                f"out-of-bounds indexing for {what} of shape ({n},): index "
+                f"{{v}} is out of bounds for axis 0 with size {n} (pc {h})")
+                for h, what, n, _ in index]
+        names = ["hot"]
+        words = [eff["hot"]]
+        if eff["writes"] is not None:
+            names += ["write"] * eff["writes"].shape[1]
+            words += list(eff["writes"].T)
+        names += ["block_a", "block_b"]
+        words += [eff["block_a"], eff["block_b"]]
+        wv = torch.stack(words)                                   # [M, L]
+        out = (wv < -1) | (wv >= W)
+        dead = (self.dead.gather(1, wv.clamp(0, W - 1).T).T & (wv >= 0)
+                & ~out)
+        bads.append(torch.stack([out, dead], 1).flatten(0, 1))
+        vals.append(wv.repeat_interleave(2, 0))
+        for what in names:
+            codes += [self._code(f"{what} word {{v}} outside [-1, W)"),
+                      self._code(f"{what} word {{v}} is a padded dead "
+                                 "counter slot")]
+        bads.append(~(dur >= 0)[None])
+        vals.append(torch.zeros_like(vals[-1][:1]))
+        codes.append(self._code("negative instruction duration {d}"))
+
+        bad = torch.cat(bads) & hm
+        first = bad.to(torch.int32).argmax(0)[None]
+        code = torch.where(bad.any(0), torch.tensor(codes, device=dev)[
+            first[0]], scalar(0, dev))
+        new = (self.code == 0) & (code > 0)
+        self.code = torch.where(new, code, self.code)
+        self.val = torch.where(new, torch.cat(vals).gather(0, first)[0],
+                               self.val)
+        self.fval = torch.where(new, dur, self.fval)
+
+    def raise_first(self):
+        """Raise the first failed check of the lowest lane, if any."""
+        code = self.code.cpu()
+        lanes = code.nonzero()
+        if lanes.numel():
+            lane = int(lanes[0, 0])
+            msg = self.messages[int(code[lane]) - 1].format(
+                v=int(self.val[lane]), d=float(self.fval[lane]))
+            raise RuntimeError(f"{msg}; first at lane {lane}")
 
 
 def pending(st: SimState, max_events: int) -> torch.Tensor:
@@ -1142,6 +1366,7 @@ def step_loop(prog: Program, max_events: int, st: SimState,
                              f"{pix.shape[0]} lanes, the state {L}")
     consts = _consts(prog.env, L)
     stream = _KeyStream(prog.env, seeds, prog.draws)
+    san = _Sanitizer(prog.env, L) if checks_enabled() else None
     # A run where no process can crash takes the crash-free handlers.
     faults = bool((st.crashed | (st.crash_t < INF)).any())
     with torch.inference_mode():
@@ -1149,7 +1374,9 @@ def step_loop(prog: Program, max_events: int, st: SimState,
             draws = stream.chunk(CHECK_EVERY) if stream.needed else {}
             for j in range(CHECK_EVERY):
                 st = _step(prog, st, {k: v[:, j] for k, v in draws.items()},
-                           max_events, consts, faults)
+                           max_events, consts, faults, san)
+            if san is not None:
+                san.raise_first()
     return st
 
 

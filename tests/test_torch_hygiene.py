@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.programs.dht, repro_torch.bench.dht, "
             "repro_torch.bench.faults, repro_torch.bench.kernels, "
             "repro_torch.bench.run, repro_torch.examples.quickstart, "
-            "repro_torch.examples.lock_demo, repro_torch.examples.serve_kv; "
+            "repro_torch.examples.lock_demo, repro_torch.examples.serve_kv, "
+            "repro_torch.analysis.locklint, repro_torch.analysis.model, "
+            "repro_torch.analysis.mutants, repro_torch.core.api; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -104,6 +106,22 @@ def test_benchmarks_and_examples_default_to_cuda_and_raise_without_it(
                  lambda: run.main(["--only", "faults"]),
                  lambda: quickstart.main(), lambda: lock_demo.main(),
                  lambda: serve_kv.main()):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+def test_locklint_and_shims_default_to_cuda_and_raise_without_it(no_cuda):
+    import warnings
+
+    from repro_torch.analysis import locklint
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        from repro_torch.core import api
+
+    for call in (lambda: locklint.check_kind("fompi_spin", quick=True),
+                 lambda: locklint.check_dht(),
+                 lambda: locklint.main(["--kind", "fompi_spin", "--quick"]),
+                 lambda: api.RMARWLock(P=4, fanout=(2,)).run()):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
 
