@@ -1,10 +1,6 @@
 """Architecture configuration schema + registry (copy of
-`repro.configs.base`).
-
-Only the families the port serves so far have modules here: dense
-(`qwen2_0p5b`) and ssm (`mamba2_130m`). The other archs of `ARCH_IDS`
-raise a `ValueError` until their families are ported (ROADMAP.md,
-queue 1).
+`repro.configs.base`), with one module per arch of `ARCH_IDS`: every
+family is ported. An unknown arch raises a `ValueError`.
 """
 from __future__ import annotations
 
@@ -93,17 +89,13 @@ ALIASES = {
 }
 
 
-PORTED_ARCHS = ("qwen2_0p5b", "mamba2_130m")
+PORTED_ARCHS = ARCH_IDS            # every arch of the reference
 
 
 def _module(arch: str):
     arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED_ARCHS:
-        raise ValueError(
-            f"{arch} is not ported to repro_torch yet: its family comes "
-            f"later (ROADMAP.md, queue 1); ported: {PORTED_ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import batch_for
+from repro_torch.data.synthetic import SyntheticLM, batch_for, input_specs
 
-__all__ = ["batch_for"]
+__all__ = ["SyntheticLM", "batch_for", "input_specs"]

@@ -6,7 +6,7 @@
 //
 // Layout (as in the TPU kernel): q [B, Sq, H, dh], k/v [B, Skv, KV, dh],
 // f32 or bf16, contiguous; the output has q's shape and dtype. Query
-// head h reads KV head h / (H / KV). Any Sq and Skv; 1 <= dh <= 128.
+// head h reads KV head h / (H / KV). Any Sq and Skv; 1 <= dh <= 256.
 //
 // What bounds it on this card: operations. The two products do ~S/4
 // operations per byte of q/k/v/o at S 1024, and they stay on f32 FMAs
@@ -30,6 +30,15 @@
 //   tile at 64 registers. A row group's threads are lanes of one warp: a
 //   row max or sum is 3 (or 4) shuffles, and P is shared through shared
 //   memory between those lanes only (__syncwarp, no barrier).
+// - The large bucket, 128 < dh <= 256 (DeepSeek-V3's MLA prefill runs dh
+//   192 = 128 + 64). A 128-row Q tile there would need 128 x 260 x 4 of
+//   Q plus 2 x 64 x 260 x 4 of K and V, over the 227 KB a CTA may have,
+//   and an 8 x 8 O tile of 256 columns is 256 registers. So this bucket
+//   takes 64-row Q tiles, 8 row groups of 32 lanes (256 threads, one warp
+//   per row group): each thread holds 8 rows x 2 keys of S and 8 rows x 8
+//   columns of O (64 registers), and a CTA 219 KB of shared memory (one
+//   per SM). Fewer FMAs per operand loaded than the smaller buckets: a
+//   simple form, not a fast one (the tensor-core redesign is queued).
 // - Vector operands, no bank conflicts. Q [128][DB + 4] and K, V
 //   [64][DB + 4] (DB the dh bucket, 32, 64 or 128; (DB + 4) / 4 is odd,
 //   so 8 consecutive rows fall on 8 distinct 16-byte bank groups; the
@@ -71,25 +80,26 @@
 
 namespace {
 
-constexpr int kBQ = 128;         // query rows per CTA
 constexpr int kBK = 64;          // keys per kv tile
-constexpr int kTR = 8;           // rows of S and O per thread: rg + 16 i
-constexpr int kRG = kBQ / kTR;   // row groups
+constexpr int kTR = 8;           // rows of S and O per thread: rg + kRG i
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of a CTA (bytes): Q [kBQ][ld], K and V [kBK][ld] and P
-// [kBQ][pld], f32.
-constexpr size_t smem_bytes(int ld, int pld) {
-  return sizeof(float) * (kBQ * ld + 2 * kBK * ld + kBQ * pld);
+// Shared memory of a CTA (bytes): Q [bq][ld], K and V [kBK][ld] and P
+// [bq][pld], f32.
+constexpr size_t smem_bytes(int bq, int ld, int pld) {
+  return sizeof(float) * (bq * ld + 2 * kBK * ld + bq * pld);
 }
-// The shape of the work per head_dim bucket DB (32, 64 or 128): kCG
-// column groups, so each thread holds 8 rows x kTC keys of S and 8 rows x
-// NO = DB / kCG columns of O (NCH chunks of 4: u * 4 kCG + 4 cg + w). dh
-// 128 takes 16 column groups, which keeps its O tile at 64 registers.
+// The shape of the work per head_dim bucket DB (32, 64, 128 or 256): kBQ
+// query rows in kRG row groups and kCG column groups, so each thread
+// holds 8 rows x kTC keys of S and 8 rows x NO = DB / kCG columns of O
+// (NCH chunks of 4: u * 4 kCG + 4 cg + w). dh 128 takes 16 column groups
+// and dh 256 32 (on 64 rows), which keeps their O tiles at 64 registers.
 template <int DB>
 struct Cfg {
-  static constexpr int kCG = DB == 128 ? 16 : 8;
+  static constexpr int kBQ = DB == 256 ? 64 : 128;
+  static constexpr int kRG = kBQ / kTR;
+  static constexpr int kCG = DB == 256 ? 32 : DB == 128 ? 16 : 8;
   static constexpr int kThreads = kRG * kCG;
   static constexpr int kTC = kBK / kCG;
   static constexpr int NCH = DB / (4 * kCG);
@@ -100,7 +110,7 @@ struct Cfg {
   static constexpr int kLd = DB + 4;
   static constexpr int kPld = kBK + kCG;
   static constexpr int kMinBlocks = 256 / kThreads;
-  static constexpr size_t kSmem = smem_bytes(kLd, kPld);
+  static constexpr size_t kSmem = smem_bytes(kBQ, kLd, kPld);
   // kMinBlocks CTAs fit on an SM: 228 KB, 1 KB of it reserved per CTA.
   static_assert(kMinBlocks * (kSmem + 1024) <= 233472,
                 "a CTA's tiles do not fit");
@@ -206,6 +216,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              int Skv, int H, int KV, int dh, float qscale, int causal,
              int window) {
   using C = Cfg<DB>;
+  constexpr int kBQ = C::kBQ, kRG = C::kRG;
   constexpr int kCG = C::kCG, kTC = C::kTC, NCH = C::NCH, NO = C::NO;
   constexpr int LD = C::kLd, PLD = C::kPld, NT = C::kThreads;
   extern __shared__ float4 smem4[];
@@ -456,7 +467,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (e == cudaSuccess) ready.fetch_or(bit);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int n_qt = (Sq + C::kBQ - 1) / C::kBQ;
   kernel<<<n_qt * B * H, C::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), B, Sq, Skv, H, KV, dh,
@@ -474,7 +485,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   if (dh <= 64)
     return launch<T, 64, VEC>(q, k, v, o, B, Sq, Skv, H, KV, dh, qscale,
                               causal, window, stream);
-  return launch<T, 128, VEC>(q, k, v, o, B, Sq, Skv, H, KV, dh, qscale,
+  if (dh <= 128)
+    return launch<T, 128, VEC>(q, k, v, o, B, Sq, Skv, H, KV, dh, qscale,
+                               causal, window, stream);
+  return launch<T, 256, VEC>(q, k, v, o, B, Sq, Skv, H, KV, dh, qscale,
                              causal, window, stream);
 }
 
@@ -488,7 +502,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int is_bf16, float scale, int causal,
                                       int window, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  if (dh < 1 || dh > 128 || KV < 1 || H % KV != 0)
+  if (dh < 1 || dh > 256 || KV < 1 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float qscale = scale * kLog2e;

@@ -16,10 +16,11 @@ Which one runs is a rule on dtype and shape only (`variant`): bf16
 inputs with head_dim a multiple of 16 up to 128 and Skv >= 1 take the
 tensor-core variant (then H*dh*2 and KV*dh*2, TMA's row strides, are
 multiples of 32 bytes); f32 inputs (whose 2e-5 tolerance TF32 misses)
-and every other bf16 shape take the CUDA-core variant.
+and every other bf16 shape, head_dim 129-256 among them (DeepSeek-V3's
+MLA prefill runs dh 192), take the CUDA-core variant.
 
 Semantics: q [B,Sq,H,dh], k/v [B,Skv,KV,dh], f32 or bf16 (one dtype),
-H % KV == 0, dh <= 128; query head h reads KV head h // (H // KV).
+H % KV == 0, dh <= 256; query head h reads KV head h // (H // KV).
 Scores are (q / sqrt(dh)) k^T, masked to -1e30 where `causal` forbids
 (kpos > qpos) or the window does (kpos <= qpos - window); an online
 softmax over kv tiles keeps m, l and the accumulator in f32, and the
@@ -114,8 +115,8 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
                          "[B,Sq,H,dh] / [B,Skv,KV,dh] with H % KV == 0")
-    if dh > 128:
-        raise ValueError(f"flash_attention: head_dim {dh} > 128")
+    if dh > 256:
+        raise ValueError(f"flash_attention: head_dim {dh} > 256")
     if window is not None and window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
 

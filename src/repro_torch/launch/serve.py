@@ -5,8 +5,10 @@ swaps against in-flight readers. Counterpart of `repro.launch.serve`.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --smoke --batch 4 --prompt-len 16 --decode 32 [--device cpu]
 
-Runs on CUDA unless given `--device cpu`. Prefill attention and the
-Mamba2 scan go through the port's CUDA kernels there.
+Serves every arch with a decode path (an encoder such as hubert-xlarge
+exits, as the reference's launcher does). Runs on CUDA unless given
+`--device cpu`. Prefill attention and the Mamba2 scan go through the
+port's CUDA kernels there.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ def _sync(device: torch.device):
 
 def grow_cache(cfg, cache, B: int, total: int):
     """The prefill cache copied into a zeroed cache for `total`
-    positions (the reference's right-sizing for decode growth)."""
+    positions (the reference's right-sizing for decode growth): every
+    layout's sequence axis grows, the other axes are equal."""
     full = lm.make_cache(cfg, B, total, device=cache["len"].device)
     for name, t in cache.items():
         if t.dim():
@@ -39,17 +42,20 @@ def grow_cache(cfg, cache, B: int, total: int):
     return full
 
 
-def generate(cfg, store: VersionedStore, tokens: torch.Tensor, n_new: int,
+def generate(cfg, store: VersionedStore, batch: dict, n_new: int,
              *, swap_every: int = 0, background_swap: bool = False):
-    """Prefill `tokens` [B, S] under a reader view, then decode greedily
-    until each row has `n_new` new tokens (the first from the prefill's
-    logits), reading the params through worker `step % n_workers`'s view.
+    """Prefill `batch` ("tokens" [B, S], plus a VLM's "patches") under a
+    reader view into a cache of n_patches + S + n_new positions, then
+    decode greedily until each row has `n_new` new tokens (the first
+    from the prefill's logits), reading the params through worker
+    `step % n_workers`'s view.
     Every `swap_every` decode steps the store swaps in the same params
     (a new version), inline or, with `background_swap`, from a thread
     that runs while the readers decode.
 
     Returns (new tokens [B, n_new] int32, prefill seconds, decode
     seconds for the n_new - 1 decode steps)."""
+    tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     prefill = build_prefill_step(cfg)
@@ -58,8 +64,8 @@ def generate(cfg, store: VersionedStore, tokens: torch.Tensor, n_new: int,
     _sync(dev)
     t0 = time.perf_counter()
     with store.reader_view(0) as (p, _):
-        logits, cache = prefill(p, {"tokens": tokens})
-    cache = grow_cache(cfg, cache, B, S + n_new)
+        logits, cache = prefill(p, batch)
+    cache = grow_cache(cfg, cache, B, cfg.n_patches + S + n_new)
     tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -111,12 +117,14 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device)
     store = VersionedStore(params, n_workers=1, T_DC=1)
-    batch = batch_for(cfg, B, S, 0, seed=args.seed)
-    tokens = torch.from_numpy(batch["tokens"]).to(device)
-    toks, prefill_s, decode_s = generate(cfg, store, tokens, args.decode,
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in batch_for(cfg, B, S, 0, seed=args.seed).items()}
+    toks, prefill_s, decode_s = generate(cfg, store, batch, args.decode,
                                          swap_every=args.swap_every)
     steps = args.decode - 1
-    print(f"prefill {B} x {S} tokens in {prefill_s:.2f}s on {device}")
+    prefix = f" after {cfg.n_patches} patches" if cfg.n_patches else ""
+    print(f"prefill {B} x {S} tokens{prefix} in {prefill_s:.2f}s on "
+          f"{device}")
     print(f"decoded {steps} steps x batch {B} in {decode_s:.2f}s "
           f"({steps * B / max(decode_s, 1e-9):.1f} tok/s, store "
           f"v{store.version})")

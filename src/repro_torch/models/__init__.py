@@ -1,2 +1,3 @@
-"""The LM substrate of the port (dense and ssm families): layers, the
-Mamba2 mixer, the LM assembly and the conversion of reference params."""
+"""The LM substrate of the port (every family): layers, the Mamba2
+mixer, MoE, MLA, the LM assembly and the conversion of reference
+params."""

@@ -2,11 +2,14 @@
 port's `LM`.
 
 The input is the reference's params pytree with every leaf a numpy
-array, e.g. `jax.tree.map(np.asarray, params)`: {"embed": {...},
-"blocks": {...}} where each block leaf carries the layers on a leading
-[L, ...] axis (the reference `vmap`s its block init). The conversion
-keeps the leaf names and splits that axis into one `ParamTree` per
-layer; values are copied as they are (f32).
+array, e.g. `jax.tree.map(np.asarray, params)`. The reference stacks
+layers on leading axes (it `vmap`s its block init): `blocks` [L, ...]
+(hybrid: [G, period, ...]), `dense_blocks` [n_dense_layers, ...] and
+`moe_blocks` [L - n_dense_layers, ...]. The conversion keeps the group
+and leaf names and splits those axes into one `ParamTree` per layer (a
+list per hybrid group); `embed`, `shared`, `mtp_block` and the
+`shared_in` / `mtp_proj` matrices carry no layer axis. Values are copied
+as they are (f32).
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ import torch
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.lm import LM
 
+STACKED = ("blocks", "dense_blocks", "moe_blocks")
+UNSTACKED = ("embed", "shared", "shared_in", "mtp_proj", "mtp_block")
+
 
 def _tree(node, fn):
     if isinstance(node, dict):
@@ -23,19 +29,44 @@ def _tree(node, fn):
     return fn(np.asarray(node))
 
 
+def _leading(node):
+    """The length of the leading (layer) axis of a stacked group (None
+    for a group with no leaf, such as a non-parametric norm's {})."""
+    if not isinstance(node, dict):
+        return np.asarray(node).shape[0]
+    for child in node.values():
+        n = _leading(child)
+        if n is not None:
+            return n
+    return None
+
+
 def from_reference(np_params: dict, cfg, device=None) -> LM:
     """The reference's params (nested dict of numpy arrays) as an `LM` on
     `device` (CUDA unless given)."""
     device = resolve_device(device)
-    extra = set(np_params) - {"embed", "blocks"}
+    extra = set(np_params) - set(STACKED) - set(UNSTACKED)
     if extra:
-        raise ValueError(f"{cfg.name}: parameter groups {sorted(extra)} "
-                         "belong to families not ported yet")
+        raise ValueError(f"{cfg.name}: unknown parameter groups "
+                         f"{sorted(extra)}")
 
     def tensor(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    embed = _tree(np_params["embed"], tensor)
-    blocks = [_tree(np_params["blocks"], lambda a, i=i: tensor(a[i]))
-              for i in range(cfg.n_layers)]
-    return LM(cfg, embed, blocks)
+    def split(node, depth):
+        """One tree per index of the leading axis, `depth` axes deep."""
+        if depth == 0:
+            return _tree(node, tensor)
+        return [split(_tree(node, lambda a, i=i: a[i]), depth - 1)
+                for i in range(_leading(node))]
+
+    groups = {}
+    for name, node in np_params.items():
+        if name in STACKED:
+            depth = 2 if cfg.family == "hybrid" and name == "blocks" else 1
+            groups[name] = split(node, depth)
+        elif isinstance(node, dict):
+            groups[name] = _tree(node, tensor)
+        else:
+            groups[name] = tensor(node)
+    return LM(cfg, groups)

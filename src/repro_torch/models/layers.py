@@ -1,4 +1,4 @@
-"""Core neural layers of the port's dense and SSM families (counterpart of
+"""Core neural layers shared by every family of the port (counterpart of
 `repro.models.layers`).
 
 Conventions as in the reference: activations are [batch, seq, d_model];
@@ -50,7 +50,8 @@ def normal(shape, scale, generator, device) -> torch.Tensor:
     shape only)."""
     if device.type == "meta":
         return torch.empty(shape, device=device)
-    return torch.randn(shape, generator=generator, device=device) * scale
+    # In place: a full-width expert tensor is not held twice.
+    return torch.randn(shape, generator=generator, device=device).mul_(scale)
 
 
 # ----------------------------------------------------------------- norms

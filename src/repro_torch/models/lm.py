@@ -1,7 +1,11 @@
-"""Language-model assembly for the port's families (counterpart of
-`repro.models.lm`): dense (uniform [attention + FFN] blocks) and ssm
-(Mamba2 blocks). The MoE, MLA, hybrid, encoder, VLM and audio families
-come later (ROADMAP.md, queue 1).
+"""Language-model assembly for every family (counterpart of
+`repro.models.lm`):
+  dense/vlm/audio/encoder - uniform [attention + FFN] blocks,
+  moe    - leading dense blocks + MoE blocks (deepseek-v3, arctic),
+  ssm    - Mamba2 (SSD) blocks,
+  hybrid - Mamba2 groups of `hybrid_period` blocks, each followed by a
+           weight-shared attention block fed by the concat of the hidden
+           state and the original embedding (zamba2).
 
 Entry points, as in the reference (params is an `LM` module):
   init_params(cfg, generator, device) -> LM (f32 masters)
@@ -9,13 +13,19 @@ Entry points, as in the reference (params is an `LM` module):
   prefill(params, cfg, batch)         -> (logits, cache)
   decode_step(params, cfg, tokens, cache) -> (logits, cache) [one token]
   make_cache(cfg, B, S, device)       -> zeroed cache dict
+  param_counts(cfg)                   -> (total, active per token)
 
-`batch` is {"tokens": integer tensor [B, S]} on the model's device. The
-cache keeps the reference's layout: dense k/v [L,B,S,KV,dh] and ssm
-ssm [L,B,H,P,N] (f32) / conv [L,B,CONV_K-1,conv_dim], the activations
-in COMPUTE_DTYPE, plus "len" (0-dim int32, the tokens it holds).
-`decode_step` updates the cache tensors in place and returns the same
-dict with "len" advanced.
+`batch` holds tensors on the model's device: "tokens" [B, S] integers,
+plus "patches" [B, n_patches, d_model] for a VLM (a prefix in front of
+the tokens, so the cache counts n_patches + S positions), or "frames"
+[B, S, frame_dim] for audio. The cache keeps the reference's layout:
+k/v [L,B,S,KV,dh] (MLA: latent [L,B,S,kv_lora] as "k" and rope keys
+[L,B,S,qk_rope] as "v"); ssm [L,B,H,P,N] (f32) / conv [L,B,CONV_K-1,
+conv_dim]; hybrid ssm/conv with [G, period] leading axes and the shared
+block's k/v [G,B,S,KV,dh]; activations in COMPUTE_DTYPE; plus "len"
+(0-dim int32, the positions it holds). An encoder's prefill returns only
+"len". `decode_step` updates the cache tensors in place and returns the
+same dict with "len" advanced.
 
 Devices: `init_params` and `make_cache` run on CUDA unless given
 another device (`device="cpu"`, or "meta" for shapes only).
@@ -29,61 +39,89 @@ import torch
 from torch import nn
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.layers import ParamTree
 
 COMPUTE_DTYPE = torch.bfloat16
-FAMILIES = ("dense", "ssm")
+ATTN_FAMILIES = ("dense", "vlm", "audio", "encoder")
 
 
-def _check_family(cfg):
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported yet "
-                         f"(ROADMAP.md, queue 1); ported: {FAMILIES}")
+def _module(node):
+    """A params node as a module: a dict as a `ParamTree`, a list as an
+    `nn.ModuleList` (hybrid blocks nest two), a tensor as a parameter."""
+    if isinstance(node, dict):
+        return ParamTree(node)
+    if isinstance(node, list):
+        return nn.ModuleList(_module(n) for n in node)
+    return nn.Parameter(node, requires_grad=False)
 
 
 class LM(nn.Module):
-    """The model's parameters: `embed` (tok, ln_f) and one `ParamTree`
-    per layer in `blocks`, under the reference's leaf names (the
-    reference stacks the layers on a leading axis)."""
+    """The model's parameters under the reference's group and leaf names:
+    `embed` (tok, ln_f, head, frame_proj), one `ParamTree` per layer in
+    `blocks` (hybrid: a list per group), `dense_blocks` / `moe_blocks`,
+    `shared`, `shared_in`, `mtp_proj`, `mtp_block`. The reference stacks
+    the layers on leading axes instead."""
 
-    def __init__(self, cfg, embed: dict, blocks: list):
+    def __init__(self, cfg, groups: dict):
         super().__init__()
-        _check_family(cfg)
         self.cfg = cfg
-        self.embed = ParamTree(embed)
-        self.blocks = nn.ModuleList(ParamTree(b) for b in blocks)
+        for name, node in groups.items():
+            setattr(self, name, _module(node))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self, self.cfg, {"tokens": tokens})
+    def forward(self, batch: dict) -> torch.Tensor:
+        return forward(self, self.cfg, batch)
 
 
 # ------------------------------------------------------------------ blocks
-def init_dense_block(cfg, generator, device) -> dict:
+def init_dense_block(cfg, generator, device, use_moe: bool = False) -> dict:
     p = {"ln1": layers.init_norm(cfg.d_model, cfg.norm, device),
-         "ln2": layers.init_norm(cfg.d_model, cfg.norm, device),
-         "attn": layers.init_attention(cfg, generator, device)}
-    p["ffn"] = layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp, generator,
-                               device,
-                               bias=(cfg.mlp == "gelu" and cfg.qkv_bias))
+         "ln2": layers.init_norm(cfg.d_model, cfg.norm, device)}
+    if cfg.attn_kind == "mla":
+        p["attn"] = mla.init_mla(cfg, generator, device)
+    else:
+        p["attn"] = layers.init_attention(cfg, generator, device)
+    if use_moe:
+        p["ffn"] = moe.init_moe(cfg, generator, device)
+    else:
+        p["ffn"] = layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp, generator,
+                                   device,
+                                   bias=(cfg.mlp == "gelu" and cfg.qkv_bias))
     return p
 
 
-def dense_block_apply(p, h, cfg):
-    """Full-sequence block. Returns (h, (k, v)) for the cache."""
+def dense_block_apply(p, h, cfg, use_moe: bool = False):
+    """Full-sequence block. Returns (h, MoE aux loss (0.0 without MoE),
+    kv) where kv is the (k, v) / MLA (c_kv, k_rope) pair for the
+    cache."""
     hn = layers.apply_norm(h, p["ln1"], cfg.norm)
-    a, kv = layers.attention_apply(p["attn"], hn, cfg)
+    if cfg.attn_kind == "mla":
+        a, kv = mla.mla_apply(p["attn"], hn, cfg)
+    else:
+        a, kv = layers.attention_apply(p["attn"], hn, cfg)
     h = h + a
     hn = layers.apply_norm(h, p["ln2"], cfg.norm)
-    return h + layers.mlp_apply(p["ffn"], hn, cfg.mlp), kv
+    if use_moe:
+        f, aux = moe.moe_apply(p["ffn"], hn, cfg)
+    else:
+        f, aux = layers.mlp_apply(p["ffn"], hn, cfg.mlp), 0.0
+    return h + f, aux, kv
 
 
-def dense_block_decode(p, h, cfg, ck, cv, length):
+def dense_block_decode(p, h, cfg, ck, cv, length, use_moe: bool = False):
     hn = layers.apply_norm(h, p["ln1"], cfg.norm)
-    a, (ck, cv) = layers.attention_decode(p["attn"], hn, cfg, ck, cv, length)
+    if cfg.attn_kind == "mla":
+        a, (ck, cv) = mla.mla_decode(p["attn"], hn, cfg, ck, cv, length)
+    else:
+        a, (ck, cv) = layers.attention_decode(p["attn"], hn, cfg, ck, cv,
+                                              length)
     h = h + a
     hn = layers.apply_norm(h, p["ln2"], cfg.norm)
-    return h + layers.mlp_apply(p["ffn"], hn, cfg.mlp), ck, cv
+    if use_moe:
+        f, _ = moe.moe_apply(p["ffn"], hn, cfg)
+    else:
+        f = layers.mlp_apply(p["ffn"], hn, cfg.mlp)
+    return h + f, ck, cv
 
 
 def init_mamba_block(cfg, generator, device) -> dict:
@@ -108,6 +146,11 @@ def mamba_block_decode(p, h, cfg, s, conv):
     return h + y, s_new, conv_new
 
 
+def _shared_in(params, h, h0):
+    """The hybrid shared block's input: [h, h0] @ shared_in."""
+    return torch.cat([h, h0], dim=-1) @ params.shared_in.to(h.dtype)
+
+
 # --------------------------------------------------------------- embedding
 def init_embed(cfg, generator, device) -> dict:
     p = {"tok": layers.normal((cfg.vocab, cfg.d_model), 0.02, generator,
@@ -117,13 +160,30 @@ def init_embed(cfg, generator, device) -> dict:
         p["head"] = layers.normal((cfg.d_model, cfg.vocab),
                                   1.0 / np.sqrt(cfg.d_model), generator,
                                   device)
+    if cfg.frame_dim:
+        p["frame_proj"] = layers.normal((cfg.frame_dim, cfg.d_model),
+                                        1.0 / np.sqrt(cfg.frame_dim),
+                                        generator, device)
     return p
 
 
-def embed_inputs(params, cfg, batch):
+def _tokens(params, tokens):
     """Token embedding in COMPUTE_DTYPE (gathered, then cast: the same
     values as the reference's cast-then-gather)."""
-    return params.embed["tok"][batch["tokens"].long()].to(COMPUTE_DTYPE)
+    return params.embed["tok"][tokens.long()].to(COMPUTE_DTYPE)
+
+
+def embed_inputs(params, cfg, batch):
+    """Token / modality-stub embedding [B, S', d_model]: audio frames
+    through frame_proj; a VLM's patches in front of its tokens."""
+    p = params.embed
+    if cfg.frame_dim:                                   # audio stub
+        return (batch["frames"].to(COMPUTE_DTYPE)
+                @ p["frame_proj"].to(COMPUTE_DTYPE))
+    tok = _tokens(params, batch["tokens"])
+    if cfg.n_patches:                                   # vlm stub
+        return torch.cat([batch["patches"].to(COMPUTE_DTYPE), tok], dim=1)
+    return tok
 
 
 def lm_head(params, cfg, h):
@@ -142,67 +202,144 @@ def init_params(cfg, generator=None, device=None) -> LM:
     if device.type != "meta" and generator is None:
         raise ValueError("init_params needs a torch.Generator on "
                          f"{device} (only the meta device draws nothing)")
-    _check_family(cfg)
-    init_block = (init_dense_block if cfg.family == "dense"
-                  else init_mamba_block)
-    embed = init_embed(cfg, generator, device)
-    blocks = [init_block(cfg, generator, device)
-              for _ in range(cfg.n_layers)]
-    return LM(cfg, embed, blocks)
+    g, dev = generator, device
+
+    def dense(n, use_moe=False):
+        return [init_dense_block(cfg, g, dev, use_moe) for _ in range(n)]
+
+    groups: Dict[str, Any] = {"embed": init_embed(cfg, g, dev)}
+    if cfg.family in ATTN_FAMILIES:
+        groups["blocks"] = dense(cfg.n_layers)
+    elif cfg.family == "moe":
+        if cfg.n_dense_layers:
+            groups["dense_blocks"] = dense(cfg.n_dense_layers)
+        groups["moe_blocks"] = dense(cfg.n_layers - cfg.n_dense_layers, True)
+    elif cfg.family == "ssm":
+        groups["blocks"] = [init_mamba_block(cfg, g, dev)
+                            for _ in range(cfg.n_layers)]
+    elif cfg.family == "hybrid":
+        groups["blocks"] = [[init_mamba_block(cfg, g, dev)
+                             for _ in range(cfg.hybrid_period)]
+                            for _ in range(cfg.n_layers // cfg.hybrid_period)]
+        groups["shared"] = init_dense_block(cfg, g, dev)
+        groups["shared_in"] = layers.normal(
+            (2 * cfg.d_model, cfg.d_model), 1.0 / np.sqrt(2 * cfg.d_model),
+            g, dev)
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.mtp:
+        groups["mtp_proj"] = layers.normal(
+            (2 * cfg.d_model, cfg.d_model), 1.0 / np.sqrt(2 * cfg.d_model),
+            g, dev)
+        groups["mtp_block"] = init_dense_block(cfg, g, dev)
+    return LM(cfg, groups)
+
+
+def _attn_layers(params, cfg):
+    """(block, is_moe) in layer order for the attention families and
+    MoE."""
+    if cfg.family == "moe":
+        return ([(b, False) for b in getattr(params, "dense_blocks", [])]
+                + [(b, True) for b in params.moe_blocks])
+    return [(b, False) for b in params.blocks]
 
 
 # ---------------------------------------------------------------- forward
 def forward(params, cfg, batch):
-    """Full-sequence forward. Returns logits [B, S, vocab]."""
+    """Full-sequence forward. Returns logits [B, S', vocab] (the MoE aux
+    loss is the train path's)."""
     h = embed_inputs(params, cfg, batch)
-    for blk in params.blocks:
-        if cfg.family == "dense":
-            h, _ = dense_block_apply(blk, h, cfg)
-        else:
+    if cfg.family == "ssm":
+        for blk in params.blocks:
             h, _, _ = mamba_block_apply(blk, h, cfg)
+    elif cfg.family == "hybrid":
+        h0 = h
+        for group in params.blocks:
+            for blk in group:
+                h, _, _ = mamba_block_apply(blk, h, cfg)
+            za, _, _ = dense_block_apply(params.shared,
+                                         _shared_in(params, h, h0), cfg)
+            h = h + za
+    else:
+        for blk, is_moe in _attn_layers(params, cfg):
+            h, _, _ = dense_block_apply(blk, h, cfg, is_moe)
     return lm_head(params, cfg, h)
 
 
 # ------------------------------------------------------------------ cache
 def make_cache(cfg, B, S, device=None) -> Dict[str, Any]:
     """Zeroed serving cache sized for S total positions."""
-    _check_family(cfg)
     device = resolve_device(device)
     c: Dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32,
                                             device=device)}
     L = cfg.n_layers
-    if cfg.family == "dense":
-        c["k"] = torch.zeros(L, B, S, cfg.n_kv_heads, cfg.head_dim,
-                             dtype=COMPUTE_DTYPE, device=device)
+
+    def zeros(*shape, dtype=COMPUTE_DTYPE):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family in ("dense", "vlm") or (cfg.family == "moe"
+                                          and cfg.attn_kind != "mla"):
+        c["k"] = zeros(L, B, S, cfg.n_kv_heads, cfg.head_dim)
         c["v"] = torch.zeros_like(c["k"])
-    else:
+    elif cfg.family == "moe":
+        c["k"] = zeros(L, B, S, cfg.kv_lora_rank)
+        c["v"] = zeros(L, B, S, cfg.qk_rope_dim)
+    elif cfg.family == "ssm":
         _, nheads, conv_dim = ssm.ssm_dims(cfg)
-        c["ssm"] = torch.zeros(L, B, nheads, cfg.ssm_head_dim, cfg.ssm_state,
-                               device=device)
-        c["conv"] = torch.zeros(L, B, ssm.CONV_K - 1, conv_dim,
-                                dtype=COMPUTE_DTYPE, device=device)
+        c["ssm"] = zeros(L, B, nheads, cfg.ssm_head_dim, cfg.ssm_state,
+                         dtype=torch.float32)
+        c["conv"] = zeros(L, B, ssm.CONV_K - 1, conv_dim)
+    elif cfg.family == "hybrid":
+        _, nheads, conv_dim = ssm.ssm_dims(cfg)
+        G, per = cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period
+        c["ssm"] = zeros(G, per, B, nheads, cfg.ssm_head_dim, cfg.ssm_state,
+                         dtype=torch.float32)
+        c["conv"] = zeros(G, per, B, ssm.CONV_K - 1, conv_dim)
+        c["k"] = zeros(G, B, S, cfg.n_kv_heads, cfg.head_dim)
+        c["v"] = torch.zeros_like(c["k"])
     return c
 
 
 # ---------------------------------------------------------------- prefill
 def prefill(params, cfg, batch):
     """Full-sequence forward that also builds the serving cache."""
+    if cfg.family in ("encoder", "audio"):
+        x = batch["frames"] if cfg.frame_dim else batch["tokens"]
+        return forward(params, cfg, batch), {
+            "len": torch.tensor(x.shape[1], dtype=torch.int32,
+                                device=x.device)}
     h = embed_inputs(params, cfg, batch)
-    S = h.shape[1]
-    cache: Dict[str, Any] = {"len": torch.tensor(S, dtype=torch.int32,
+    cache: Dict[str, Any] = {"len": torch.tensor(h.shape[1],
+                                                 dtype=torch.int32,
                                                  device=h.device)}
-    parts = ([], [])
-    for blk in params.blocks:
-        if cfg.family == "dense":
-            h, kv = dense_block_apply(blk, h, cfg)
-        else:
+    parts: Dict[str, list] = {}
+
+    def keep(**ts):
+        for name, t in ts.items():
+            parts.setdefault(name, []).append(t)
+
+    if cfg.family == "ssm":
+        for blk in params.blocks:
             h, s, conv = mamba_block_apply(blk, h, cfg)
-            kv = (s, conv)
-        for part, t in zip(parts, kv):
-            part.append(t)
-    names = ("k", "v") if cfg.family == "dense" else ("ssm", "conv")
-    for name, part in zip(names, parts):
-        cache[name] = torch.stack(part)
+            keep(ssm=s, conv=conv)
+    elif cfg.family == "hybrid":
+        h0 = h
+        for group in params.blocks:
+            s, cv = [], []
+            for blk in group:
+                h, s1, c1 = mamba_block_apply(blk, h, cfg)
+                s.append(s1)
+                cv.append(c1)
+            z, _, (k, v) = dense_block_apply(params.shared,
+                                             _shared_in(params, h, h0), cfg)
+            h = h + z
+            keep(ssm=torch.stack(s), conv=torch.stack(cv), k=k, v=v)
+    else:
+        for blk, is_moe in _attn_layers(params, cfg):
+            h, _, (k, v) = dense_block_apply(blk, h, cfg, is_moe)
+            keep(k=k, v=v)
+    for name, ts in parts.items():
+        cache[name] = torch.stack(ts)
     return lm_head(params, cfg, h), cache
 
 
@@ -211,15 +348,44 @@ def decode_step(params, cfg, tokens, cache):
     """One decode step. tokens: [B, 1] integers. Returns (logits, cache);
     the cache's tensors are updated in place."""
     length = cache["len"]
-    h = embed_inputs(params, cfg, {"tokens": tokens})
-    for i, blk in enumerate(params.blocks):
-        if cfg.family == "dense":
-            h, _, _ = dense_block_decode(blk, h, cfg, cache["k"][i],
-                                         cache["v"][i], length)
-        else:
+    h = _tokens(params, tokens)
+    if cfg.family == "ssm":
+        for i, blk in enumerate(params.blocks):
             h, s, conv = mamba_block_decode(blk, h, cfg, cache["ssm"][i],
                                             cache["conv"][i])
             cache["ssm"][i].copy_(s)
             cache["conv"][i].copy_(conv)
+    elif cfg.family == "hybrid":
+        h0 = h
+        for g, group in enumerate(params.blocks):
+            for j, blk in enumerate(group):
+                h, s, conv = mamba_block_decode(
+                    blk, h, cfg, cache["ssm"][g, j], cache["conv"][g, j])
+                cache["ssm"][g, j].copy_(s)
+                cache["conv"][g, j].copy_(conv)
+            z, _, _ = dense_block_decode(params.shared,
+                                         _shared_in(params, h, h0), cfg,
+                                         cache["k"][g], cache["v"][g],
+                                         length)
+            h = h + z
+    else:
+        for i, (blk, is_moe) in enumerate(_attn_layers(params, cfg)):
+            h, _, _ = dense_block_decode(blk, h, cfg, cache["k"][i],
+                                         cache["v"][i], length, is_moe)
     cache["len"] = length + 1
     return lm_head(params, cfg, h), cache
+
+
+# --------------------------------------------------------------- counting
+def param_counts(cfg):
+    """(total, active-per-token) parameter counts for MODEL_FLOPS=6ND,
+    reckoned on the meta device."""
+    total = sum(p.numel() for p in init_params(cfg,
+                                               device="meta").parameters())
+    if cfg.family != "moe":
+        return total, total
+    # Active: total minus the non-selected experts' weights.
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    n_moe_layers = cfg.n_layers - cfg.n_dense_layers
+    inactive = n_moe_layers * (cfg.n_experts - cfg.top_k) * per_expert
+    return total, total - inactive

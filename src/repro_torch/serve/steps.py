@@ -1,7 +1,9 @@
 """Serving step builders (counterpart of `repro.serve.steps`).
 
-`decode_step` is one new token against a cache holding the past
-positions; the cache layout comes from `models.lm.make_cache`.
+The prefill step takes the whole batch ("tokens", plus "patches" for a
+VLM or "frames" for audio); `decode_step` is one new token against a
+cache holding the past positions, for every family with a decode path.
+The cache layout comes from `models.lm.make_cache`.
 """
 from __future__ import annotations
 

@@ -35,6 +35,13 @@ SHAPES = [
     # tensor-core variant's tiles and bf16 P in the plain version.
     (1, 256, 256, 14, 2, 64, True, None, "bfloat16"),
     (1, 200, 200, 8, 4, 128, True, 50, "bfloat16"),
+    # Past head_dim 128 (the card's CUDA-core bucket): DeepSeek-V3's MLA
+    # width 192 (causal, windowed, GQA) and 256, in both dtypes.
+    (1, 128, 128, 4, 4, 192, True, None, "float32"),
+    (1, 128, 128, 4, 2, 192, True, 32, "bfloat16"),
+    (2, 100, 100, 4, 1, 192, True, None, "bfloat16"),
+    (1, 64, 128, 2, 1, 256, False, None, "float32"),
+    (1, 128, 128, 4, 2, 256, True, 40, "bfloat16"),
 ]
 
 
@@ -95,7 +102,8 @@ def test_rows_with_no_key_average_every_value():
     ("bfloat16", 16, 1, "wgmma"), ("bfloat16", 48, 64, "wgmma"),
     ("bfloat16", 40, 64, "fma"), ("bfloat16", 8, 64, "fma"),
     ("bfloat16", 64, 0, "fma"), ("float32", 64, 1024, "fma"),
-    ("float32", 128, 64, "fma")])
+    ("float32", 128, 64, "fma"), ("bfloat16", 144, 64, "fma"),
+    ("bfloat16", 192, 1024, "fma"), ("float32", 256, 64, "fma")])
 def test_variant_rule(dtype, dh, Skv, want):
     """The CUDA kernel a call takes follows dtype and shape only."""
     dt = getattr(torch, dtype)
@@ -143,6 +151,9 @@ def test_wrapper_refuses_mixed_or_bad_inputs():
         ops.flash_attention(q, k.to("meta"), v)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2), k, v)
+    wide = torch.zeros(1, 8, 2, 272)
+    with pytest.raises(ValueError, match="head_dim 272 > 256"):
+        ops.flash_attention(wide, wide, wide)
     k2, v2 = torch.cat([k, k], dim=2), torch.cat([v, v], dim=2)
     with pytest.raises(ValueError, match="H % KV"):
         ops.flash_attention(torch.cat([q, q[:, :, :1]], dim=2), k2, v2)

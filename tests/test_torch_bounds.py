@@ -78,3 +78,25 @@ def test_lookup_bytes_matches_brute_force(seed, nb, TB, KB):
     keys[rng.rand(nb, KB) < 0.2] = -1
     hit = (rng.rand(nb, KB) < 0.6) & (keys != -1)
     assert lookup_bytes(nb, TB, keys, hit) == brute_force(nb, TB, keys, hit)
+
+
+@pytest.mark.parametrize("causal,window,dtype,Sq,Skv", [
+    (True, None, torch.bfloat16, 96, 96),         # MLA's call: no window
+    (True, 40, torch.bfloat16, 96, 96),           # H2O-Danube's window
+    (False, None, torch.bfloat16, 64, 80),        # HuBERT: non-causal
+    (True, None, torch.float32, 50, 50)])
+def test_attention_bound_counts_the_kept_pairs(causal, window, dtype, Sq,
+                                               Skv):
+    """4 dh operations per (query, key) pair the mask keeps, counted pair
+    by pair; bytes: q, k, v read and the output written once."""
+    B, H, KV, dh = 2, 4, 2, 24
+    q = torch.zeros(B, Sq, H, dh, dtype=dtype)
+    k = torch.zeros(B, Skv, KV, dh, dtype=dtype)
+    kwargs = {"causal": causal} if window is None else {
+        "causal": causal, "window": window}
+    _, _, flops, nbytes = chip_smoke.attention_bound(q, k, k, **kwargs)
+    kept = sum((not causal or kp <= qp) and (window is None
+                                              or kp > qp - window)
+               for qp in range(Sq) for kp in range(Skv))
+    assert flops == 4 * dh * B * H * kept
+    assert nbytes == (2 * q.numel() + 2 * k.numel()) * q.element_size()

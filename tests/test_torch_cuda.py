@@ -2,7 +2,7 @@
 oracles, on the card (marked `cuda`; they skip without one). The shapes
 are those of tests/test_kernels.py plus ragged lengths, so these cover
 what the model's path does not: windows, GQA groups, non-causal Sq !=
-Skv, head dims 16-128, f32 (at model width too, and off a 16-byte
+Skv, head dims 16-256, f32 (at model width too, and off a 16-byte
 boundary), and chunks below 128. Each attention case
 also checks which variant ran (tensor-core `wgmma` for bf16 with head_dim
 a multiple of 16 up to 128, CUDA-core `fma` otherwise).
@@ -55,6 +55,28 @@ ATTN_SHAPES = [
     (2, 300, 300, 4, 2, 128, True, 100, torch.float32),
     (1, 70, 70, 2, 1, 5, True, None, torch.float32),
     (1, 128, 200, 4, 2, 96, False, 32, torch.float32),
+    # The new families' shapes. dh 80 on the tensor cores (Zamba2's
+    # shared block, H2O-Danube, HuBERT): causal, non-causal, windowed.
+    (2, 256, 256, 4, 4, 80, True, None, torch.bfloat16),
+    (2, 256, 256, 4, 4, 80, False, None, torch.bfloat16),
+    (1, 300, 300, 8, 2, 80, True, 100, torch.bfloat16),
+    # The CUDA-core bucket past 128 (64-row q tiles): dh 144 where it
+    # starts, 192 (DeepSeek-V3's MLA) and 256, bf16 and f32, causal,
+    # windowed, GQA, non-causal Sq != Skv, rows with no key, a dh that
+    # is not a multiple of 4.
+    (1, 128, 128, 4, 2, 144, True, None, torch.bfloat16),
+    (1, 128, 128, 4, 2, 144, True, None, torch.float32),
+    (1, 256, 256, 4, 4, 192, True, None, torch.bfloat16),
+    (1, 256, 256, 4, 4, 192, True, None, torch.float32),
+    (2, 200, 200, 8, 2, 192, True, 64, torch.bfloat16),
+    (2, 200, 200, 8, 2, 192, True, 64, torch.float32),
+    (1, 150, 70, 4, 2, 192, True, 40, torch.float32),
+    (1, 1024, 1024, 16, 16, 192, True, None, torch.bfloat16),
+    (1, 256, 256, 4, 2, 256, True, None, torch.bfloat16),
+    (1, 256, 256, 4, 2, 256, True, None, torch.float32),
+    (1, 300, 300, 4, 2, 256, True, 100, torch.float32),
+    (1, 200, 330, 4, 1, 256, False, None, torch.float32),
+    (1, 130, 130, 2, 1, 130, True, 32, torch.float32),
 ]
 SSD_SHAPES = [
     (2, 64, 3, 16, 8, 16),
@@ -70,6 +92,7 @@ SSD_SHAPES = [
     (2, 256, 3, 64, 64, 128),                               # N 64
     (2, 36, 3, 6, 5, 6),                # 4-byte loads: P, N, chunk odd
     (1, 21, 2, 8, 8, 7),
+    (4, 1024, 80, 64, 64, 128),                             # Zamba2-2.7B
 ]
 
 
@@ -133,7 +156,7 @@ def test_flash_attention_refuses_what_no_variant_takes(dev):
     q = torch.zeros(1, 64, 2, 64, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention(q, q, q)
-    q = torch.zeros(1, 64, 2, 144, device=dev, dtype=torch.bfloat16)
+    q = torch.zeros(1, 64, 2, 272, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q, q)
     flat = torch.zeros(1 + 1 * 64 * 2 * 64, device=dev, dtype=torch.bfloat16)

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.bench.run, repro_torch.examples.quickstart, "
             "repro_torch.examples.lock_demo, repro_torch.examples.serve_kv, "
             "repro_torch.analysis.locklint, repro_torch.analysis.model, "
-            "repro_torch.analysis.mutants, repro_torch.core.api; "
+            "repro_torch.analysis.mutants, repro_torch.core.api, "
+            "repro_torch.models.moe, repro_torch.models.mla, "
+            "repro_torch.launch.smoke_models; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -91,6 +93,21 @@ def test_lm_and_launcher_default_to_cuda_and_raise_without_it(no_cuda):
         serve.main(["--arch", "qwen2-0.5b", "--smoke"])
     model = lm.init_params(cfg, torch.Generator(), device="cpu")
     assert model.embed.tok.device.type == "cpu"
+
+
+def test_model_families_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.launch import serve, smoke_models
+    from repro_torch.models import lm
+
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        smoke_models.main([])
+    for arch in ("internvl2-2b", "deepseek-v3-671b", "zamba2-2.7b"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            serve.main(["--arch", arch, "--smoke"])
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            lm.make_cache(get_smoke_config(arch), 1, 4)
+    assert set(smoke_models.main(["--device", "cpu"])) == set(ARCH_IDS)
 
 
 def test_benchmarks_and_examples_default_to_cuda_and_raise_without_it(
