@@ -7,8 +7,9 @@ Phases, each fails the run if it fails:
   1. Card: name and power limit (nvidia-smi), then build every CUDA
      kernel from `src/repro_torch/kernels/csrc` (one nvcc per source, all
      started together), print ptxas's registers, shared memory and
-     spills, and count the HGMMA (`wgmma`) instructions in the
-     tensor-core attention kernel's SASS (cuobjdump; fails if none).
+     spills (fails if the tensor-core attention kernel spills), and
+     count the HGMMA (`wgmma`) instructions in its SASS (cuobjdump;
+     fails if none).
   2. DHT volume (paper §5.3) at a deployment size: nb=16384 blocks x
      TB=1024 slots (16.8 M slots, 128 MiB of keys + values), a 2**22
      entry overflow heap; insert 2**22 distinct keys, then 2**21 of them
@@ -47,17 +48,19 @@ Phases, each fails the run if it fails:
      (one dense MLA layer, one MoE layer) and Arctic (one layer) served
      the same way, HuBERT-XLarge (an encoder) by a 4 x 1024-frame
      prefill. Each checks its parameter count, its prefill's launches
-     (flash_attention once per attention application, the tensor-core
-     variant except MLA's dh 192 on the CUDA cores; Zamba2's ssd_scan
-     once per Mamba2 layer), teacher-forced decode against prefill (f32
+     (flash_attention once per attention application, every one on the
+     tensor-core variant, MLA's dh 192 too; Zamba2's ssd_scan once per
+     Mamba2 layer), teacher-forced decode against prefill (f32
      gated at 1e-3; the MoE archs on a 1 x 64 prompt at capacity factor
      E / K, so that nothing is dropped; H2O-Danube also at 1 x 8192,
      past its 4096-token window), tokens in range and the swap landed,
      and prints prefill s, decode ms per step, torch ops per step and
      peak memory. The new kernel shapes are held against their plain
      versions and oracles and timed (HuBERT's dh 80 non-causal,
-     H2O-Danube's dh 80 windowed at 8192, DeepSeek's dh 192, Zamba2's
-     scan), SDPA beside each attention row (a window as its mask).
+     H2O-Danube's dh 80 windowed at 8192, DeepSeek's dh 192 in bf16 on
+     the tensor cores and in f32, from its teacher-forced run, on the
+     CUDA-core bucket past 128, Zamba2's scan), SDPA beside each
+     attention row (a window as its mask).
   4. Fig. 6, the crash matrix and the examples, through the entry
      points a user calls: `bench.dht.bench_dht(ps=(64,))` (foMPI-A,
      foMPI-RW and RMA-RW, each scheme's four writer fractions the lanes
@@ -758,20 +761,23 @@ def attention_row(kind: str, args, kwargs, launches: int,
     # around back-to-back calls would measure instead. Event times, in
     # turns (kernel, SDPA, kernel), are printed beside.
     run = lambda: fa.flash_attention(*args, **kwargs)  # noqa: E731
-    passes = kernel_times(run, "")
+    bound_ms, by, flops, nbytes = attention_bound(*args, **kwargs)
+    floor_ms = bound_ms / BOUND_SLACK
+    passes = kernel_times(run, "", floor_ms=floor_ms)
     ms = sum(t for _, t in passes.values())
     check(ms > 0, f"torch.profiler saw no device time in flash_attention "
           f"({kind})")
-    library = kernel_times(sdpa, "")
+    library = kernel_times(sdpa, "", floor_ms=floor_ms)
     library_ms = sum(t for _, t in library.values())
     turns = [cuda_ms(run, 20), cuda_ms(sdpa, 20), cuda_ms(run, 20)]
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(*args, **kwargs), 5)
-    bound_ms, by, flops, nbytes = attention_bound(*args, **kwargs)
     check(len(passes) == 1 and all(c == 1 for c, _ in passes.values()),
           f"flash_attention ({kind}) launched {passes} per call, not one "
           "kernel once")
-    check(ms >= bound_ms / BOUND_SLACK,
-          f"flash_attention ({kind}) timed at {ms} ms, under its bound "
+    check(ms >= floor_ms, f"flash_attention ({kind}) timed at {ms} ms, "
+          f"under its bound {bound_ms} ms: the trace lost time")
+    check(library_ms >= floor_ms, f"SDPA timed at {library_ms} ms on "
+          f"flash_attention ({kind})'s inputs, under their bound "
           f"{bound_ms} ms: the trace lost time")
     print(f"flash_attention ({kind}, {dtype}): {ms:.4f} ms device time "
           f"({', '.join(f'{k} x{c:g}' for k, (c, _) in passes.items())}; "
@@ -962,13 +968,12 @@ FAMILY_ARCHS = (
     ("arctic-480b", {"n_layers": 1}),
 )
 # flash_attention launches of one prefill (one per attention application;
-# Zamba2's shared block runs once per 6 Mamba2 layers) and the variant
-# they take (MLA's dh 192 is past the tensor-core variant's 128); the
-# ssd_scan launches (one per Mamba2 layer).
+# Zamba2's shared block runs once per 6 Mamba2 layers), every one on the
+# tensor-core variant (MLA's dh 192 too); the ssd_scan launches (one per
+# Mamba2 layer).
 ATTN_LAUNCHES = {"starcoder2-7b": 32, "olmo-1b": 16, "h2o-danube-1.8b": 24,
                  "internvl2-2b": 24, "zamba2-2.7b": 9, "hubert-xlarge": 48,
                  "deepseek-v3-671b": 2, "arctic-480b": 1}
-ATTN_VARIANT = {"deepseek-v3-671b": "fma"}
 SSD_LAUNCHES = {"zamba2-2.7b": 54}
 # MoE teacher-forced runs: one 64-token row at capacity factor E / K, so
 # that C = T and no (token, k) pair is dropped. At the published 1.25,
@@ -1007,7 +1012,6 @@ def serve_family(arch: str, cut: dict, seed: int) -> list:
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
              batch_for(cfg, SERVE_B, SERVE_S, 0, seed=seed).items()}
     attn_mod = mla if cfg.attn_kind == "mla" else layers
-    kind = ATTN_VARIANT.get(arch, "wgmma")
     n_attn, n_ssd = ATTN_LAUNCHES[arch], SSD_LAUNCHES.get(arch, 0)
     cut_note = f", depth cut: {cut}" if cut else ""
     print(f"serve {arch}: {n_params} params ({4 * n_params / 1e9:.2f} GB "
@@ -1016,8 +1020,8 @@ def serve_family(arch: str, cut: dict, seed: int) -> list:
 
     def teacher_forced_runs(tf_cfg, tf_batch, label: str):
         """Both dtypes' teacher-forced runs, each a counted path; returns
-        the bf16 run's (layer 0 attention inputs, launches)."""
-        out = None
+        {dtype: (layer 0 attention inputs, launches)}."""
+        out = {}
         for dtype in ("float32", "bfloat16"):
             reset_counts()
             with first_call(attn_mod, "flash_attention") as seen:
@@ -1035,23 +1039,23 @@ def serve_family(arch: str, cut: dict, seed: int) -> list:
                   f"{arch}: the {label} {dtype} teacher-forced run launched "
                   f"{counts}, not {n_attn} attention and {n_ssd} ssd_scan "
                   "calls in each of its two prefills")
-            if dtype == "bfloat16":
-                out = seen[0], counts
+            out[dtype] = seen[0], counts
         return out
 
-    window = None
+    window = tf = None
     if cfg.has_decode:
         tf_cfg, tf_batch, label = cfg, batch, f"{SERVE_B} x {SERVE_S}"
         if cfg.family == "moe":
             tf_cfg = cfg.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
             tf_batch = {k: v[:1, :TF_MOE_S] for k, v in batch.items()}
             label = f"1 x {TF_MOE_S} (capacity factor E/K)"
-        teacher_forced_runs(tf_cfg, tf_batch, label)
+        tf = teacher_forced_runs(tf_cfg, tf_batch, label)
         if arch == WINDOW_ARCH:
             wb = {"tokens": torch.from_numpy(batch_for(
                 cfg, 1, WINDOW_S, 0, seed=seed)["tokens"]).to(dev)}
             window = teacher_forced_runs(
-                cfg, wb, f"1 x {WINDOW_S} (window {cfg.sliding_window})")
+                cfg, wb, f"1 x {WINDOW_S} (window {cfg.sliding_window})"
+            )["bfloat16"]
 
     # ---- main path, counted; layer 0's kernel inputs captured ----
     version = store.version
@@ -1099,9 +1103,11 @@ def serve_family(arch: str, cut: dict, seed: int) -> list:
               "finite or of the wrong shape")
         del logits
     check(launches["flash_attention"] == n_attn
-          and launches[f"flash_attention_{kind}"] == n_attn,
-          f"{arch}: the bf16 prefill launched {launches}, not the {kind} "
-          f"flash_attention once per attention application ({n_attn})")
+          and launches["flash_attention_wgmma"] == n_attn
+          and launches["flash_attention_fma"] == 0,
+          f"{arch}: the bf16 prefill launched {launches}, not the wgmma "
+          f"flash_attention once per attention application ({n_attn}) and "
+          "the fma one never")
     check(launches["ssd_scan"] == n_ssd,
           f"{arch}: ssd_scan launched {launches['ssd_scan']} times in one "
           f"prefill, not once per Mamba2 layer ({n_ssd})")
@@ -1115,12 +1121,17 @@ def serve_family(arch: str, cut: dict, seed: int) -> list:
         rows.append(attention_row("wgmma", *window[0],
                                   window[1]["flash_attention_wgmma"],
                                   f"{tag}@{WINDOW_S}"))
-    elif cfg.attn_kind == "mla":                 # dh 192, CUDA cores
-        rows.append(attention_row("fma", *seen[0],
-                                  launches["flash_attention_fma"], tag))
+    elif cfg.attn_kind == "mla":                 # dh 192
+        # bf16 on the tensor cores (the main path); f32 on the CUDA-core
+        # bucket past 128 (the f32 teacher-forced run, its counted path).
+        rows.append(attention_row("wgmma", *seen[0],
+                                  launches["flash_attention_wgmma"], tag))
+        rows.append(attention_row("fma", *tf["float32"][0],
+                                  tf["float32"][1]["flash_attention_fma"],
+                                  f"{tag}/f32"))
     elif n_ssd:                                  # Zamba2's scan
         rows.append(ssd_row(*seen_ssd[0], launches["ssd_scan"], tag))
-    del params, store, seen, seen_ssd, window, batch
+    del params, store, seen, seen_ssd, window, tf, batch
     torch.cuda.empty_cache()
     print(f"serve {arch}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB allocated, {time.perf_counter() - t_arch:.1f} s in all",
@@ -1128,17 +1139,21 @@ def serve_family(arch: str, cut: dict, seed: int) -> list:
     return rows
 
 
-def kernel_times(fn, prefix: str, n: int = 10, tries: int = 3) -> dict:
+def kernel_times(fn, prefix: str, n: int = 10, tries: int = 3,
+                 floor_ms: float = 0.0) -> dict:
     """{CUDA kernel: (launches per call, device ms per call)} of fn(),
     for the kernels whose name contains `prefix`, from torch.profiler
     over n calls after one warm-up. Only the device is traced, so no
     host op also carries its kernels' time. The profiler can drop a
     kernel's records (one run saw 2 of 10 launches; kernels of 0.1-1 ms
-    lost 1-3 of 10 in every trace): a trace where some kernel's launches
-    are not a whole number per call is taken again, and after `tries`
-    each kernel is timed by its mean over its recorded launches, times
-    its launches per call rounded (at least 1). A time the trace still
-    gets wrong shows against the kernel's bound (BOUND_SLACK)."""
+    lost 1-3 of 10 in every trace) or time whole launches short (one
+    trace put SDPA at half its CUDA-event time, under its bound): a
+    trace where some kernel's launches are not a whole number per call,
+    or whose kernels sum to less than `floor_ms` per call, is taken
+    again, and after `tries` each kernel is timed by its mean over its
+    recorded launches, times its launches per call rounded (at least
+    1). A time the trace still gets wrong shows against the caller's
+    bound (BOUND_SLACK)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
@@ -1161,10 +1176,11 @@ def kernel_times(fn, prefix: str, n: int = 10, tries: int = 3) -> dict:
             if us > 0:
                 out[name] = (ev.count / n, us / n / 1e3)
                 counts[name] = (ev.count, us)
-        if all(c % n == 0 for c, _ in counts.values()):
+        total = sum(t for _, t in out.values())
+        if all(c % n == 0 for c, _ in counts.values()) and total >= floor_ms:
             return out
-        print(f"  torch.profiler dropped launches: {out}; tracing again",
-              flush=True)
+        print(f"  torch.profiler dropped launches or time: {out} ({total} ms "
+              f"per call, floor {floor_ms} ms); tracing again", flush=True)
     per_call = {k: max(1, round(c / n)) for k, (c, _) in counts.items()}
     print(f"  timing {sorted(counts)} by the mean over their recorded "
           f"launches {({k: c for k, (c, _) in counts.items()})}",
@@ -1730,11 +1746,19 @@ def main(argv=None) -> int:
     logs, secs = build.timed_build()
     print(f"built {sorted(logs) or 'nothing (cached)'} in {secs:.2f} s",
           flush=True)
+    if "flash_attention_wgmma" not in logs:   # cached: no ptxas report
+        build.lib_path("flash_attention_wgmma").unlink()
+        logs.update(build.build(("flash_attention_wgmma",)))
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}.cu ptxas: {line.strip()}", flush=True)
+    log = logs["flash_attention_wgmma"]
+    check("registers" in log, "no ptxas report for flash_attention_wgmma.cu")
+    spills = [line.strip() for line in log.splitlines()
+              if re.search(r"[1-9]\d* bytes spill", line)]
+    check(not spills, f"flash_attention_wgmma.cu spills registers: {spills}")
     hgmma = count_sass(build.lib_path("flash_attention_wgmma"), "HGMMA")
     print(f"flash_attention_wgmma.cu SASS: {hgmma} HGMMA instructions "
           "(cuobjdump -sass)", flush=True)

@@ -2,7 +2,7 @@
 // cores (sm_90a), in f32. Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention.py (via `flash_attention`) for f32
 // inputs, and for the bf16 shapes that flash_attention_wgmma.cu does not
-// take (head_dim not a multiple of 16, or no key).
+// take (head_dim not a multiple of 16 or past 192, or no key).
 //
 // Layout (as in the TPU kernel): q [B, Sq, H, dh], k/v [B, Skv, KV, dh],
 // f32 or bf16, contiguous; the output has q's shape and dtype. Query
@@ -30,15 +30,17 @@
 //   tile at 64 registers. A row group's threads are lanes of one warp: a
 //   row max or sum is 3 (or 4) shuffles, and P is shared through shared
 //   memory between those lanes only (__syncwarp, no barrier).
-// - The large bucket, 128 < dh <= 256 (DeepSeek-V3's MLA prefill runs dh
-//   192 = 128 + 64). A 128-row Q tile there would need 128 x 260 x 4 of
-//   Q plus 2 x 64 x 260 x 4 of K and V, over the 227 KB a CTA may have,
-//   and an 8 x 8 O tile of 256 columns is 256 registers. So this bucket
-//   takes 64-row Q tiles, 8 row groups of 32 lanes (256 threads, one warp
-//   per row group): each thread holds 8 rows x 2 keys of S and 8 rows x 8
-//   columns of O (64 registers), and a CTA 219 KB of shared memory (one
-//   per SM). Fewer FMAs per operand loaded than the smaller buckets: a
-//   simple form, not a fast one (the tensor-core redesign is queued).
+// - The large bucket, 128 < dh <= 256 (DeepSeek-V3's MLA prefill in f32,
+//   its teacher-forced check, runs dh 192 = 128 + 64 here; in bf16 it
+//   takes the tensor-core kernel). A 128-row Q tile there would need 128
+//   x 260 x 4 of Q plus 2 x 64 x 260 x 4 of K and V, over the 227 KB a
+//   CTA may have, and an 8 x 8 O tile of 256 columns is 256 registers.
+//   So this bucket takes 64-row Q tiles, 8 row groups of 32 lanes (256
+//   threads, one warp per row group): each thread holds 8 rows x 2 keys
+//   of S and 8 rows x 8 columns of O (64 registers), and a CTA 219 KB of
+//   shared memory (one per SM). Fewer FMAs per operand loaded than the
+//   smaller buckets: a simple form, not a fast one (f32, and bf16 past dh
+//   192, only).
 // - Vector operands, no bank conflicts. Q [128][DB + 4] and K, V
 //   [64][DB + 4] (DB the dh bucket, 32, 64 or 128; (DB + 4) / 4 is odd,
 //   so 8 consecutive rows fall on 8 distinct 16-byte bank groups; the

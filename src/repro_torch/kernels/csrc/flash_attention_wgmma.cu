@@ -2,8 +2,9 @@
 // tensor cores of NVIDIA Hopper (sm_90a): `wgmma` products fed by TMA.
 // Replaces the Pallas TPU kernel `_kernel` of
 // src/repro/kernels/flash_attention.py for bf16 inputs whose head_dim
-// is a multiple of 16 up to 128; flash_attention.cu keeps f32 and every
-// other bf16 shape (the rule is in kernels/flash_attention.py).
+// is a multiple of 16 up to 192 (DeepSeek-V3's MLA prefill runs 192);
+// flash_attention.cu keeps f32 and every other bf16 shape (the rule is in
+// kernels/flash_attention.py).
 //
 // Semantics (the TPU kernel's): q [B, Sq, H, dh], k/v [B, Skv, KV, dh]
 // bf16, contiguous; query head h reads KV head h / (H / KV). Scores
@@ -13,33 +14,61 @@
 // written in bf16. P is rounded to bf16 for the P V product (the plain
 // version does the same for these shapes).
 //
-// What bounds it on this card: operations. At Qwen2-0.5B's prefill
-// shapes (B 4, S 1024, H 14, KV 2, dh 64) the two products do ~7.5
-// GFLOP against 16.8 MB, far above the card's ~295 bf16 ops per byte.
-// So both products run on `wgmma`, and the kernel keeps the tensor cores
-// fed:
+// What bounds it on this card: operations at Qwen2-0.5B's prefill shapes
+// (B 4, S 1024, H 14, KV 2, dh 64: ~7.5 GFLOP against 16.8 MB, far above
+// the card's ~295 bf16 ops per byte); at DeepSeek-V3's MLA layer (B 4, S
+// 1024, H = KV = 128, dh 192: 2.06e11 flop against 805 MB, 256 ops per
+// byte) bytes by a little (0.240 ms against 0.208 ms of operations). So
+// both products run on `wgmma`, and the kernel keeps the tensor cores
+// fed while it reads each byte once:
 //
 // - One CTA per (b, h, 128-row q tile): three warpgroups. Warpgroups 0
 //   and 1 (consumers) own 64 query rows each; warpgroup 2 (producer)
 //   gives its registers away (`setmaxnreg`) and one of its threads
 //   issues every TMA load.
-// - TMA loads q once and each 128-row k/v tile into a ring of kStages
-//   stages, signalled by `mbarrier`s (full: bytes landed; empty: all 8
-//   consumer warps done with the stage). Tensor maps are 3-D, [B][S]
-//   [heads * dh] with row stride heads * dh * 2 bytes: a tile that runs
-//   past S reads zeros instead of the next batch's rows. Tiles are 64
-//   columns (128 bytes) wide with the 128-byte swizzle that the `wgmma`
-//   descriptors name; dh <= 64 takes one such slab, dh <= 128 two. The
-//   maps are built on the host with cuTensorMapEncodeTiled, reached
-//   through cudaGetDriverEntryPoint (no -lcuda), and passed as
-//   __grid_constant__ parameters.
-// - S = Q K^T: dh / 16 `wgmma.m64n128k16` with Q and K from shared
-//   memory (both K-major). O += P V: 8 `wgmma.m64n{64,128}k16` with P
-//   from registers (the S accumulator converted to bf16 in place: its
-//   fragment is the A operand's) and V from shared memory, MN-major
-//   through the transpose bit. Columns of a slab past dh (dh < 64, or
-//   64 < dh < 128) are never read by Q K^T and land in output columns
+// - TMA loads q once and each k/v tile of kBKV rows into a ring of
+//   kStages stages, signalled by `mbarrier`s (full: bytes landed; empty:
+//   all 8 consumer warps done with the stage). Tensor maps are 3-D, [B]
+//   [S][heads * dh] with row stride heads * dh * 2 bytes: a tile that
+//   runs past S reads zeros instead of the next batch's rows. Tiles are
+//   64 columns (128 bytes) wide with the 128-byte swizzle that the
+//   `wgmma` descriptors name; dh <= 64 takes one such slab, dh <= 128
+//   two, dh <= 192 three (one TMA box per slab). The maps are built on
+//   the host with cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__
+//   parameters.
+// - Tile sizes (Tile<>): shared memory holds Q (kSlabs x 16 KB) and the
+//   k/v ring (2 kStages kSlabs kBKV 128 bytes) in the 227 KB a block may
+//   have. One or two slabs take kBKV 128 and two stages (81 / 161 KB);
+//   three slabs at 128 would need 241 KB. Timed at DeepSeek-V3's layer
+//   (kernel_time.py --kernel flash_attention_wgmma192, in turns on one
+//   H100 80GB HBM3 at 700 W), 64 rows in three stages (193 KB) ran 0.92
+//   ms, 7% faster than 112 (FA3's hdim-192 choice, 217 KB), 96 or 64
+//   rows in two stages (0.98-0.99 ms) and 19% faster than 128 in one
+//   (1.13 ms): three slabs take it. One CTA per SM at every dh.
+// - S = Q K^T: dh / 16 `wgmma.m64n{kBKV}k16` with Q and K from shared
+//   memory (both K-major; the descriptor steps 32 bytes within a slab,
+//   then to the next slab). O += P V: kBKV / 16 `wgmma.m64n{DHP}k16`
+//   (DHP = 64, 128 or 192) with P from registers (the S accumulator
+//   converted to bf16 in place: its fragment is the A operand's) and V
+//   from shared memory, MN-major through the transpose bit, its slabs
+//   kBKV * 128 bytes apart (the descriptor's leading offset). Columns of
+//   a slab past dh are never read by Q K^T and land in output columns
 //   that are not stored.
+// - Registers: a consumer thread holds O (DHP / 2 f32: 96 at dh 192), S
+//   (kBKV / 2) and P (kBKV / 4, bf16 pairs) under `setmaxnreg` 240.
+//   ptxas (CUDA 12.8, -O3): every instantiation, dh 16-192, 168
+//   registers at launch (384 threads, one CTA per SM), 0 bytes of spill
+//   stores and loads, 0 stack.
+// - Where dh 192's time goes (the same script, edited copies): without
+//   the softmax and O's rescale the kernel ran 0.59 ms of 0.92; without
+//   the per-score work alone (scale, mask, exp2) 0.85, with every CTA
+//   reading one head's k/v (all L2 hits) 0.86, both 0.78. So the row
+//   reductions, O's rescale and the steps they serialise cost most, not
+//   memory. FA3's intra-warpgroup overlap (a tile's softmax beside the
+//   previous tile's P V) gained 2%, its warpgroup ping-pong 2-3%, CTAs
+//   grouped so their k/v fit in L2 2-8%, exp2 without subnormals 1-2%;
+//   none is kept (PERF.md).
 // - Each row's max and sum live in the 4 threads of a quad (two
 //   shuffles). Only tiles that cross the causal diagonal, the window's
 //   edge or Skv are masked; columns past Skv weigh 0 (-inf, not -1e30).
@@ -64,8 +93,6 @@
 namespace {
 
 constexpr int kBQ = 128;              // query rows per CTA
-constexpr int kBKV = 128;             // kv rows per tile
-constexpr int kStages = 2;            // k/v ring depth
 constexpr int kConsumers = 2;         // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kNegInf = -1e30f;
@@ -137,9 +164,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                              uint64_t db, int scale_d) {
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory
+// (S = Q K^T: N is the kv tile's rows).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d);
+
+// D[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major
+// (transposed) in shared memory (O += P V: N is dh padded to slabs).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -159,10 +214,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major
-// (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t db) {
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -176,10 +230,9 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major
-// (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                             uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -199,6 +252,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // Keys query row r may attend: [first_key, last_key] (empty if first >
 // last). The emptiness test is monotone in r, so the last row decides.
@@ -209,10 +290,26 @@ __device__ __forceinline__ int last_key(int r, int Skv, int causal) {
   return causal ? min(r, Skv - 1) : Skv - 1;
 }
 
-// kSteps = dh / 16, the k16 steps of Q K^T (a compile-time count keeps
-// the wgmma chain free of branches); DHP = dh padded to whole 64-column
-// slabs.
-template <int kSteps, int DHP = (kSteps <= 4 ? 64 : 128)>
+// The tiles of head_dim dh = 16 kSteps (kSteps, the k16 steps of Q K^T, is
+// a compile-time count, which keeps the wgmma chain free of branches):
+// DHP, dh padded to kSlabs whole 64-column slabs; kBKV kv rows per tile
+// and a ring of kStages k/v stages. One or two slabs take 128 kv rows in
+// two stages; three slabs at 128 would need 246,784 bytes of shared
+// memory, over the 232,448 a block may have, so they take 64 rows in
+// three stages (the fastest of the tile sets timed: see the header).
+template <int kSteps>
+struct Tile {
+  static constexpr int kSlabs = (kSteps + 3) / 4;
+  static constexpr int DHP = 64 * kSlabs;
+  static constexpr int kBKV = kSlabs <= 2 ? 128 : 64;
+  static constexpr int kStages = kSlabs <= 2 ? 2 : 3;
+  static constexpr int kSmem =
+      1024 + kSlabs * 128 * (kBQ + 2 * kStages * kBKV)
+      + (2 * kStages + 1) * static_cast<int>(sizeof(uint64_t));
+  static_assert(kSmem <= 232448, "over a block's shared memory");
+};
+
+template <int kSteps>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -220,8 +317,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv,
                    int H, int KV, float scale_log2, int causal,
                    int window) {
-  constexpr int dh = kSteps * 16;
-  constexpr int kSlabs = DHP / 64;
+  using T = Tile<kSteps>;
+  constexpr int dh = kSteps * 16, DHP = T::DHP, kSlabs = T::kSlabs;
+  constexpr int kBKV = T::kBKV, kStages = T::kStages;
   constexpr uint32_t kQBytes = kSlabs * kBQ * 128;
   constexpr uint32_t kKVBytes = kSlabs * kBKV * 128;
   extern __shared__ uint8_t smem_raw[];
@@ -297,13 +395,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(&full[st], (it / kStages) & 1);
 
       // S = Q K^T over dh in steps of 16 (32 bytes of a 128-byte row).
-      float s[64];
+      float s[kBKV / 2];
       const uint32_t k_base = smem_u32(sk + st * kKVBytes);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
         const uint32_t off = (kk % 4) * 32;       // within the slab
-        wgmma_ss_n128(
+        wgmma_ss<kBKV>(
             s, sw128_desc(q_base + (kk / 4) * kBQ * 128 + off, 16, 1024),
             sw128_desc(k_base + (kk / 4) * kBKV * 128 + off, 16, 1024),
             kk > 0);
@@ -321,7 +419,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          && k0 + kBKV <= Skv;
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBKV / 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -350,7 +448,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         m[i] = m_new;
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBKV / 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -377,21 +475,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       // P in bf16: the S fragment of columns 16 kk .. 16 kk + 15 is the
       // A fragment of the kk-th k16 step.
-      uint32_t pa[32];
+      uint32_t pa[kBKV / 4];
 #pragma unroll
-      for (int c = 0; c < 32; ++c) pa[c] = pack_bf16(s[2 * c], s[2 * c + 1]);
+      for (int c = 0; c < kBKV / 4; ++c)
+        pa[c] = pack_bf16(s[2 * c], s[2 * c + 1]);
 
-      // O += P V over the tile's 128 kv rows in steps of 16 (2048 bytes).
+      // O += P V over the tile's kv rows in steps of 16 (2048 bytes).
       const uint32_t v_base = smem_u32(sv + st * kKVBytes);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBKV / 16; ++kk) {
         const uint64_t db = sw128_desc(v_base + kk * 16 * 128,
                                        kBKV * 128, 1024);
-        if constexpr (DHP == 64)
-          wgmma_rs_n64(oacc, &pa[4 * kk], db);
-        else
-          wgmma_rs_n128(oacc, &pa[4 * kk], db);
+        wgmma_rs<DHP>(oacc, &pa[4 * kk], db);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -468,21 +564,19 @@ template <int kSteps>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int KV, float scale, int causal,
            int window, cudaStream_t stream) {
-  constexpr int dh = kSteps * 16, DHP = kSteps <= 4 ? 64 : 128;
+  using T = Tile<kSteps>;
+  constexpr int dh = kSteps * 16;
   CUtensorMap tq, tk, tv;
   int err = encode(&tq, q, B, Sq, H * dh, kBQ);
-  if (err == 0) err = encode(&tk, k, B, Skv, KV * dh, kBKV);
-  if (err == 0) err = encode(&tv, v, B, Skv, KV * dh, kBKV);
+  if (err == 0) err = encode(&tk, k, B, Skv, KV * dh, T::kBKV);
+  if (err == 0) err = encode(&tv, v, B, Skv, KV * dh, T::kBKV);
   if (err != 0) return err;
-  constexpr int kSlabs = DHP / 64;
-  const size_t smem = 1024 + kSlabs * 128 * (kBQ + 2 * kStages * kBKV)
-                      + (2 * kStages + 1) * sizeof(uint64_t);
   const cudaError_t e = cudaFuncSetAttribute(
       flash_wgmma_kernel<kSteps>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      T::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = ((Sq + kBQ - 1) / kBQ) * B * H;
-  flash_wgmma_kernel<kSteps><<<grid, kThreads, smem, stream>>>(
+  flash_wgmma_kernel<kSteps><<<grid, kThreads, T::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, Sq, Skv, H, KV,
       scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -491,7 +585,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // The signature of flash_attention_launch; is_bf16 must be 1, dh a
-// multiple of 16 up to 128, Skv >= 1; window < 0 means no sliding
+// multiple of 16 up to 192, Skv >= 1; window < 0 means no sliding
 // window. q/k/v 16-byte aligned (TMA's rule).
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* o, int B,
@@ -500,7 +594,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             int causal, int window,
                                             void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return static_cast<int>(cudaSuccess);
-  if (!is_bf16 || dh < 16 || dh > 128 || dh % 16 != 0 || KV < 1
+  if (!is_bf16 || dh < 16 || dh > 192 || dh % 16 != 0 || KV < 1
       || H % KV != 0 || Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -511,6 +605,7 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                      s);
     FLASH_STEPS(1) FLASH_STEPS(2) FLASH_STEPS(3) FLASH_STEPS(4)
     FLASH_STEPS(5) FLASH_STEPS(6) FLASH_STEPS(7) FLASH_STEPS(8)
+    FLASH_STEPS(9) FLASH_STEPS(10) FLASH_STEPS(11) FLASH_STEPS(12)
 #undef FLASH_STEPS
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -13,11 +13,12 @@ stream (see each source's header for its design and what bounds it):
   register tiles, k/v staged by `cp.async`.
 
 Which one runs is a rule on dtype and shape only (`variant`): bf16
-inputs with head_dim a multiple of 16 up to 128 and Skv >= 1 take the
-tensor-core variant (then H*dh*2 and KV*dh*2, TMA's row strides, are
-multiples of 32 bytes); f32 inputs (whose 2e-5 tolerance TF32 misses)
-and every other bf16 shape, head_dim 129-256 among them (DeepSeek-V3's
-MLA prefill runs dh 192), take the CUDA-core variant.
+inputs with head_dim a multiple of 16 up to 192 (WGMMA_MAX_DH) and Skv
+>= 1 take the tensor-core variant (then H*dh*2 and KV*dh*2, TMA's row
+strides, are multiples of 32 bytes); DeepSeek-V3's MLA prefill (dh 192)
+is one of them. f32 inputs (whose 2e-5 tolerance TF32 misses) and every
+other bf16 shape (head_dim not a multiple of 16, past 192, or no key)
+take the CUDA-core variant.
 
 Semantics: q [B,Sq,H,dh], k/v [B,Skv,KV,dh], f32 or bf16 (one dtype),
 H % KV == 0, dh <= 256; query head h reads KV head h // (H // KV).
@@ -41,16 +42,21 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+# The tensor-core variant's widest head_dim: three 64-column slabs. A
+# fourth (dh 208-256, which no model here runs) would fit a block's 227
+# KB of shared memory only with 64-row k/v tiles in two stages beside a
+# 64 KB Q, and hold a 128-register O tile per thread.
+WGMMA_MAX_DH = 192
 # The plain version's kv tile (the CUDA-core kernel's; the tensor-core
-# kernel walks 128-key tiles, which changes only the rounding).
+# kernel walks 128- or 64-key tiles, which changes only the rounding).
 BLOCK_KV = 64
 
 
 def variant(q, k) -> str:
     """The kernel a CUDA call launches: "wgmma" for bf16 with head_dim a
-    multiple of 16 up to 128 and at least one key, else "fma"."""
+    multiple of 16 up to WGMMA_MAX_DH and at least one key, else "fma"."""
     dh, Skv = q.shape[3], k.shape[1]
-    if (q.dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128
+    if (q.dtype == torch.bfloat16 and dh % 16 == 0 and dh <= WGMMA_MAX_DH
             and Skv >= 1):
         return "wgmma"
     return "fma"

@@ -4,10 +4,19 @@ shapes, with random inputs made by numpy from seed 0:
 - `ssd_scan`: Mamba2-130M's (x [4,1024,24,64] f32, dt [4,1024,24], A
   [24], B/C [4,1024,128], chunk 128);
 - `flash_attention_fma`: Qwen2-0.5B's f32 layer (q [4,1024,14,64], k/v
-  [4,1024,2,64], causal), the CUDA-core variant.
+  [4,1024,2,64], causal), the CUDA-core variant;
+- `flash_attention_wgmma`: Qwen2-0.5B's bf16 layer (the f32 one's
+  shapes), the tensor-core variant at dh 64;
+- `flash_attention_wgmma192`: DeepSeek-V3's MLA prefill layer (q/k/v
+  [4,1024,128,192] bf16, causal, V's last 64 columns zero as
+  `models/mla.py` pads them), on whichever variant the tree's
+  `variant()` names (the parent of the tensor-core dh-192 kernel ran it
+  on the CUDA cores).
 
     python src/repro_torch/launch/kernel_time.py \
-        [--kernel {ssd_scan,flash_attention_fma}] [--src TREE/src]
+        [--kernel {ssd_scan,flash_attention_fma,flash_attention_wgmma,
+                   flash_attention_wgmma192}]
+        [--src TREE/src]
 
 `--src` names the source tree whose `repro_torch` is timed (default:
 the one holding this file), so that two checkouts can be compared on
@@ -16,7 +25,9 @@ each builds its kernels into its own `build/`. Prints one JSON line:
 ms per call (the median over 9 groups of 20 back-to-back calls, each
 group between one pair of CUDA events, after a warm-up call), every
 group's ms, each CUDA kernel's device ms per call (torch.profiler over
-10 calls) and the card's name.
+10 calls), the card's name and, for attention, the variant that ran
+and its max |kernel - plain version| (so that a design variant timed
+here is also held to its plain version).
 """
 from __future__ import annotations
 
@@ -26,7 +37,18 @@ import re
 import sys
 from pathlib import Path
 
-KERNELS = ("ssd_scan", "flash_attention_fma")
+# attention kernel -> (q shape, k/v shape, bf16?, V's zero columns from,
+# the variant it must take or None for whichever the tree's variant()
+# names)
+ATTENTION = {
+    "flash_attention_fma": ((4, 1024, 14, 64), (4, 1024, 2, 64), False,
+                            None, "fma"),
+    "flash_attention_wgmma": ((4, 1024, 14, 64), (4, 1024, 2, 64), True,
+                              None, "wgmma"),
+    "flash_attention_wgmma192": ((4, 1024, 128, 192), (4, 1024, 128, 192),
+                                 True, 128, None),
+}
+KERNELS = ("ssd_scan", *ATTENTION)
 
 
 def main(argv=None) -> int:
@@ -46,6 +68,7 @@ def main(argv=None) -> int:
         raise SystemExit("kernel_time: no CUDA device")
 
     rng = np.random.default_rng(0)
+    kind = None
 
     def t(*shape):
         return torch.from_numpy(
@@ -62,15 +85,26 @@ def main(argv=None) -> int:
             return ssd_scan(*args_, chunk=128)
     else:
         from repro_torch.kernels import flash_attention as fa
-        q, k, v = t(4, 1024, 14, 64), t(4, 1024, 2, 64), t(4, 1024, 2, 64)
-        if fa.variant(q, k) != "fma":
-            raise SystemExit("kernel_time: f32 inputs do not take the "
-                             "CUDA-core attention variant")
+        qs, kvs, bf16, v_zero, want = ATTENTION[args.kernel]
+        q, k, v = t(*qs), t(*kvs), t(*kvs)
+        if v_zero is not None:
+            v[..., v_zero:] = 0
+        if bf16:
+            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        kind = fa.variant(q, k)
+        if want not in (None, kind):
+            raise SystemExit(f"kernel_time: {args.kernel}'s inputs take the "
+                             f"{kind} attention variant, not {want}")
 
         def run():
             return fa.flash_attention(q, k, v, causal=True)
 
-    run()
+    out = run()
+    err = None
+    if kind is not None:
+        err = float((out.float() - fa.flash_attention_plain(
+            q, k, v, causal=True).float()).abs().max())
+    del out
     torch.cuda.synchronize()
     times = []
     for _ in range(9):
@@ -95,7 +129,8 @@ def main(argv=None) -> int:
                 ev.self_device_time_total / 10 / 1e3)
     print(json.dumps({"kernel": args.kernel, "src": args.src,
                       "ms": float(np.median(times)), "groups_ms": times,
-                      "passes_ms": passes,
+                      "passes_ms": passes, "variant": kind,
+                      "max_abs_err_vs_plain": err,
                       "card": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -3,11 +3,12 @@
 
 Prefill runs the naive expansion (latent -> per-head K/V) through the
 port's `flash_attention` kernel at head_dim qk_nope + qk_rope (192 at
-full width, the CUDA-core variant), V zero-padded to that width and
-sliced back. Decode uses the *absorbed* form in plain PyTorch, as the
-reference does: queries are projected into the KV latent space, so
-attention runs against the compressed cache [B, S, kv_lora] + shared
-rope keys [B, S, qk_rope].
+full width: the tensor-core variant in bf16, the CUDA-core one in f32),
+V zero-padded to that width and sliced back, as the reference does (the
+kernel takes one head_dim for q, k and v). Decode uses the *absorbed*
+form in plain PyTorch, as the reference does: queries are projected into
+the KV latent space, so attention runs against the compressed cache [B,
+S, kv_lora] + shared rope keys [B, S, qk_rope].
 """
 from __future__ import annotations
 

@@ -35,11 +35,15 @@ SHAPES = [
     # tensor-core variant's tiles and bf16 P in the plain version.
     (1, 256, 256, 14, 2, 64, True, None, "bfloat16"),
     (1, 200, 200, 8, 4, 128, True, 50, "bfloat16"),
-    # Past head_dim 128 (the card's CUDA-core bucket): DeepSeek-V3's MLA
-    # width 192 (causal, windowed, GQA) and 256, in both dtypes.
+    # Past head_dim 128: DeepSeek-V3's MLA width 192 (causal, windowed,
+    # GQA; bf16 takes the tensor-core variant on the card, so the plain
+    # version rounds P to bf16) and 256 (the CUDA-core bucket), in both
+    # dtypes.
     (1, 128, 128, 4, 4, 192, True, None, "float32"),
     (1, 128, 128, 4, 2, 192, True, 32, "bfloat16"),
     (2, 100, 100, 4, 1, 192, True, None, "bfloat16"),
+    (1, 64, 128, 4, 1, 192, False, None, "bfloat16"),
+    (1, 128, 128, 4, 2, 144, True, None, "bfloat16"),
     (1, 64, 128, 2, 1, 256, False, None, "float32"),
     (1, 128, 128, 4, 2, 256, True, 40, "bfloat16"),
 ]
@@ -102,8 +106,11 @@ def test_rows_with_no_key_average_every_value():
     ("bfloat16", 16, 1, "wgmma"), ("bfloat16", 48, 64, "wgmma"),
     ("bfloat16", 40, 64, "fma"), ("bfloat16", 8, 64, "fma"),
     ("bfloat16", 64, 0, "fma"), ("float32", 64, 1024, "fma"),
-    ("float32", 128, 64, "fma"), ("bfloat16", 144, 64, "fma"),
-    ("bfloat16", 192, 1024, "fma"), ("float32", 256, 64, "fma")])
+    ("float32", 128, 64, "fma"), ("bfloat16", 144, 64, "wgmma"),
+    ("bfloat16", 192, 1024, "wgmma"), ("bfloat16", 176, 8, "wgmma"),
+    ("bfloat16", 192, 0, "fma"), ("float32", 192, 1024, "fma"),
+    ("bfloat16", 200, 64, "fma"), ("bfloat16", 208, 64, "fma"),
+    ("bfloat16", 256, 64, "fma"), ("float32", 256, 64, "fma")])
 def test_variant_rule(dtype, dh, Skv, want):
     """The CUDA kernel a call takes follows dtype and shape only."""
     dt = getattr(torch, dtype)
@@ -112,10 +119,12 @@ def test_variant_rule(dtype, dh, Skv, want):
     assert fa.variant(q, k) == want
 
 
-def test_plain_rounds_p_to_bf16_only_for_the_tensor_core_variant():
-    """bf16 inputs of the tensor-core shapes: P V uses P rounded to bf16,
-    as the kernel does; f32 inputs keep P in f32."""
-    (_, _, _), (q, k, v) = _inputs(1, 128, 128, 2, 1, 64, "float32", 9)
+@pytest.mark.parametrize("dh", [64, 192])
+def test_plain_rounds_p_to_bf16_only_for_the_tensor_core_variant(dh):
+    """bf16 inputs of the tensor-core shapes (Qwen2's dh 64, MLA's 192):
+    P V uses P rounded to bf16, as the kernel does; f32 inputs keep P in
+    f32."""
+    (_, _, _), (q, k, v) = _inputs(1, 128, 128, 2, 1, dh, "float32", 9)
     exact = fa.flash_attention_plain(q, k, v)
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     got = fa.flash_attention_plain(qb, kb, vb).float()

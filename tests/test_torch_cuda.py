@@ -4,8 +4,8 @@ are those of tests/test_kernels.py plus ragged lengths, so these cover
 what the model's path does not: windows, GQA groups, non-causal Sq !=
 Skv, head dims 16-256, f32 (at model width too, and off a 16-byte
 boundary), and chunks below 128. Each attention case
-also checks which variant ran (tensor-core `wgmma` for bf16 with head_dim
-a multiple of 16 up to 128, CUDA-core `fma` otherwise).
+also checks which variant ran (`variant()`: tensor-core `wgmma` for bf16
+with head_dim a multiple of 16 up to 192, CUDA-core `fma` otherwise).
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import dht_probe, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_plain)
+    flash_attention_plain, variant)
 from repro_torch.kernels.ssd_scan import ssd_scan_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -60,10 +60,11 @@ ATTN_SHAPES = [
     (2, 256, 256, 4, 4, 80, True, None, torch.bfloat16),
     (2, 256, 256, 4, 4, 80, False, None, torch.bfloat16),
     (1, 300, 300, 8, 2, 80, True, 100, torch.bfloat16),
-    # The CUDA-core bucket past 128 (64-row q tiles): dh 144 where it
-    # starts, 192 (DeepSeek-V3's MLA) and 256, bf16 and f32, causal,
-    # windowed, GQA, non-causal Sq != Skv, rows with no key, a dh that
-    # is not a multiple of 4.
+    # Past 128: dh 144 and 192 (DeepSeek-V3's MLA) in bf16 on the tensor
+    # cores (three 64-column slabs, 64-row kv tiles), the rest on the
+    # CUDA-core bucket (64-row q tiles): dh 144-256 in f32, 256 in bf16;
+    # causal, windowed, GQA, non-causal Sq != Skv, rows with no key, a dh
+    # that is not a multiple of 4.
     (1, 128, 128, 4, 2, 144, True, None, torch.bfloat16),
     (1, 128, 128, 4, 2, 144, True, None, torch.float32),
     (1, 256, 256, 4, 4, 192, True, None, torch.bfloat16),
@@ -77,6 +78,18 @@ ATTN_SHAPES = [
     (1, 300, 300, 4, 2, 256, True, 100, torch.float32),
     (1, 200, 330, 4, 1, 256, False, None, torch.float32),
     (1, 130, 130, 2, 1, 130, True, 32, torch.float32),
+    # bf16 dh 192 on the tensor cores: DeepSeek-V3's layer (4 batches of
+    # 128 heads) cut to 16 heads, non-causal Sq != Skv, ragged lengths
+    # (not multiples of the 128-row q or 64-row kv tiles) with a window,
+    # GQA groups of 8, a q tile with key-less rows, and dh 160 and 176
+    # (a partial third slab).
+    (4, 1024, 1024, 16, 16, 192, True, None, torch.bfloat16),
+    (2, 200, 330, 4, 1, 192, False, None, torch.bfloat16),
+    (2, 300, 250, 8, 2, 192, True, 100, torch.bfloat16),
+    (1, 256, 256, 16, 2, 192, True, None, torch.bfloat16),
+    (1, 150, 70, 4, 2, 192, True, 40, torch.bfloat16),
+    (1, 200, 200, 4, 2, 160, True, None, torch.bfloat16),
+    (1, 128, 300, 4, 4, 176, False, 64, torch.bfloat16),
 ]
 SSD_SHAPES = [
     (2, 64, 3, 16, 8, 16),
@@ -113,7 +126,7 @@ def test_flash_attention_kernel(dev, B, Sq, Skv, H, KV, dh, causal, win,
     before = (fa.launches, fa.launches_wgmma, fa.launches_fma)
     out = fa(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
-    wgmma = dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128
+    wgmma = variant(q, k) == "wgmma"
     assert (fa.launches, fa.launches_wgmma, fa.launches_fma) == (
         before[0] + 1, before[1] + wgmma, before[2] + (not wgmma))
     assert out.dtype == dtype and out.shape == q.shape
@@ -163,6 +176,22 @@ def test_flash_attention_refuses_what_no_variant_takes(dev):
     q = flat[1:].view(1, 64, 2, 64)                       # 2-byte offset
     with pytest.raises(ValueError, match="aligned"):
         ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_flash_attention_refuses_a_misaligned_view_at_dh_192(dev, offset):
+    """bf16 dh 192 takes the tensor-core variant, whose TMA loads need
+    16-byte aligned q, k, v: a view 2 or 8 bytes off is refused before any
+    launch, and never handed to the CUDA-core kernel."""
+    q = torch.zeros(1, 64, 2, 192, device=dev, dtype=torch.bfloat16)
+    flat = torch.zeros(offset + q.numel(), device=dev, dtype=torch.bfloat16)
+    k = flat[offset:].view(q.shape)
+    assert variant(q, k) == "wgmma" and k.data_ptr() % 16 == 2 * offset
+    fa = ops.flash_attention
+    before = (fa.launches, fa.launches_wgmma, fa.launches_fma)
+    with pytest.raises(ValueError, match="aligned"):
+        fa(q, k, q)
+    assert (fa.launches, fa.launches_wgmma, fa.launches_fma) == before
 
 
 @pytest.mark.parametrize("b,S,H,P,N,chunk", SSD_SHAPES)
