@@ -1,0 +1,6 @@
+"""Checkpoint save/restore (counterpart of `repro.checkpoint`)."""
+from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, latest_step,
+                                         load_checkpoint, save_checkpoint)
+
+__all__ = ["AsyncCheckpointer", "latest_step", "load_checkpoint",
+           "save_checkpoint"]

@@ -31,6 +31,16 @@ The wrapper takes the plain version only for CPU tensors; for CUDA
 tensors it launches a kernel or raises. `flash_attention.launches`
 counts kernel launches; `launches_wgmma` and `launches_fma` count each
 variant's.
+
+Gradients: when grad mode is on and an input requires grad, the call
+goes through `FlashAttentionFn`, whose forward is that same launch (the
+plain version on the CPU) and whose backward recomputes the function
+with `flash_attention_plain` under autograd. That is the reference's own
+gradient algorithm: the reference trains through XLA's autodiff of
+`multihead_attention`'s blocked online softmax, and no Pallas backward
+kernel exists. Otherwise (serving, `torch.no_grad()`) the call launches
+directly, and that raw path refuses an input that requires grad while
+grad mode is on, so a launch can never drop a gradient.
 """
 from __future__ import annotations
 
@@ -65,7 +75,14 @@ def variant(q, k) -> str:
 def flash_attention_plain(q, k, v, *, causal=True, window=None):
     """Plain PyTorch version: the kernels' online softmax over kv tiles
     of BLOCK_KV, all query rows at once, in f32; where the tensor-core
-    variant would run, P is rounded to bf16 before P V, as there."""
+    variant would run, P is rounded to bf16 before P V, as there.
+
+    It is also the function `FlashAttentionFn` differentiates: the
+    reference's `multihead_attention` (`_block_attn_body`) is this
+    online softmax, m, l and the accumulator in f32, over kv blocks of
+    up to 512 keys instead of BLOCK_KV (tiling changes only the
+    rounding); the bf16 rounding of P keeps the recompute the function
+    the tensor-core forward computed."""
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     round_p = variant(q, k) == "wgmma"
@@ -140,11 +157,53 @@ def _entry(kind: str):
     return fn
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: forward is the kernel launch (the plain
+    version on the CPU) and saves only q, k, v; backward recomputes
+    `flash_attention_plain` under autograd and backpropagates through
+    it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = flash_attention_plain(*inputs, causal=ctx.causal,
+                                        window=ctx.window)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None, None)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: [B,Sq,H,dh]; k,v: [B,Skv,KV,dh] -> [B,Sq,H,dh] in q's dtype."""
     _check(q, k, v, window)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal, window):
+    """The kernel launch (the plain version for CPU tensors), without a
+    gradient: refuses inputs that require one while grad mode is on."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if _needs_grad(q, k, v):
+        raise RuntimeError("flash_attention: the kernel launch carries no "
+                           "gradient; call flash_attention(), which routes "
+                           "inputs that require grad through "
+                           "FlashAttentionFn")
     B, Sq, H, dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     kind = variant(q, k)

@@ -26,6 +26,14 @@ S_next = e^{cum[-1]} S_prev + (x dt e^{cum[-1] - cum})^T B. Returns
 The wrapper takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernels or raises. `ssd_scan.launches` counts
 calls that launched them (one per call, not per CUDA kernel).
+
+Gradients: when grad mode is on and an input requires grad, the call
+goes through `SSDScanFn`, whose forward is that same launch (the plain
+version on the CPU) and whose backward recomputes `ssd_scan_plain` under
+autograd: the reference trains through XLA's autodiff of its jnp
+`ssd_chunked`, and no Pallas backward kernel exists. Otherwise the call
+launches directly, and that raw path refuses an input that requires
+grad while grad mode is on.
 """
 from __future__ import annotations
 
@@ -42,7 +50,13 @@ KERNELS_PER_CALL = 4
 def ssd_scan_plain(x, dt, A, B, C, *, chunk=128):
     """Plain PyTorch version, pass by pass as the kernels compute, in
     f32: C B^T per (b, chunk); every chunk's own state at once; the
-    sequential carry; then y."""
+    sequential carry; then y.
+
+    It is also the function `SSDScanFn` differentiates: the reference's
+    `ssd_chunked` computes the same y and final state from the same
+    terms (in-chunk cum of dt*A, L = exp(segment sums) masked to -inf
+    before the exp, per-chunk states, the carry, C e^cum S_prev), only
+    associated in another order, which changes the rounding alone."""
     b, S, H, P = x.shape
     N = B.shape[-1]
     cl = min(chunk, S)
@@ -108,6 +122,35 @@ def _lib():
     return lib
 
 
+class SSDScanFn(torch.autograd.Function):
+    """The scan with a gradient: forward is the kernels' launch (the
+    plain version on the CPU) and saves only the inputs; backward
+    recomputes `ssd_scan_plain` under autograd and backpropagates
+    through it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _launch(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, state = ssd_scan_plain(*inputs, chunk=ctx.chunk)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad((y, state), wanted,
+                                             (grad_y, grad_state)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk=128):
     """x: [b,S,H,P]; dt: [b,S,H]; A: [H]; B,C: [b,S,N] (float32).
 
@@ -118,9 +161,21 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
     if not 1 <= chunk <= MAX_CHUNK or S % chunk:
         raise ValueError(f"ssd_scan: chunk {chunk} must be in [1, "
                          f"{MAX_CHUNK}] and divide S={S}")
+    if _needs_grad(x, dt, A, B, C):
+        return SSDScanFn.apply(x, dt, A, B, C, chunk)
+    return _launch(x, dt, A, B, C, chunk)
+
+
+def _launch(x, dt, A, B, C, chunk):
+    """The kernels' launch (the plain version for CPU tensors), without
+    a gradient: refuses inputs that require one while grad mode is on."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-    b, _, H, P = x.shape
+    if _needs_grad(x, dt, A, B, C):
+        raise RuntimeError("ssd_scan: the kernel launch carries no "
+                           "gradient; call ssd_scan(), which routes inputs "
+                           "that require grad through SSDScanFn")
+    b, S, H, P = x.shape
     N = B.shape[-1]
     nc = S // chunk
     y = torch.empty_like(x)

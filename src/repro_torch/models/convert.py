@@ -10,6 +10,10 @@ and leaf names and splits those axes into one `ParamTree` per layer (a
 list per hybrid group); `embed`, `shared`, `mtp_block` and the
 `shared_in` / `mtp_proj` matrices carry no layer axis. Values are copied
 as they are (f32).
+
+`state_from_reference` carries a whole reference train state across
+(params, AdamW step / m / v, step), so that both packages can continue
+training from the same state.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import resolve_device
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, make_trainable
+from repro_torch.optim import AdamWState
+from repro_torch.train.step import TrainState
 
 STACKED = ("blocks", "dense_blocks", "moe_blocks")
 UNSTACKED = ("embed", "shared", "shared_in", "mtp_proj", "mtp_block")
@@ -70,3 +76,25 @@ def from_reference(np_params: dict, cfg, device=None) -> LM:
         else:
             groups[name] = tensor(node)
     return LM(cfg, groups)
+
+
+def state_from_reference(np_state, cfg, device=None):
+    """The reference's `TrainState` (its `params`, `opt` = AdamW `step`
+    / `m` / `v` and `step`, every leaf a numpy array) as the port's
+    `train.step.TrainState` on `device`: trainable params, m and v
+    under the params' names."""
+    device = resolve_device(device)
+
+    def moments(tree):
+        return {k: p.detach() for k, p in
+                from_reference(tree, cfg, device).named_parameters()}
+
+    def scalar(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+    opt = np_state.opt
+    return TrainState(
+        params=make_trainable(from_reference(np_state.params, cfg, device)),
+        opt=AdamWState(step=scalar(opt.step), m=moments(opt.m),
+                       v=moments(opt.v)),
+        step=scalar(np_state.step))

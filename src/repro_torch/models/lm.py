@@ -9,7 +9,10 @@
 
 Entry points, as in the reference (params is an `LM` module):
   init_params(cfg, generator, device) -> LM (f32 masters)
-  forward(params, cfg, batch)         -> logits        [full sequence]
+  forward(params, cfg, batch, remat=.., with_aux=..)
+                                      -> logits, or (logits, aux) [train]
+  loss_fn(params, cfg, batch, remat=..) -> (loss, {"loss", "aux"})
+  make_trainable(params)              -> params, every one requiring grad
   prefill(params, cfg, batch)         -> (logits, cache)
   decode_step(params, cfg, tokens, cache) -> (logits, cache) [one token]
   make_cache(cfg, B, S, device)       -> zeroed cache dict
@@ -29,6 +32,11 @@ same dict with "len" advanced.
 
 Devices: `init_params` and `make_cache` run on CUDA unless given
 another device (`device="cpu"`, or "meta" for shapes only).
+
+Training: parameters are built frozen (`requires_grad=False`), so
+serving never records a graph; `make_trainable` switches them on, and
+only the train path calls it. Gradients reach the attention and SSD
+kernels through their autograd Functions (`repro_torch.kernels`).
 """
 from __future__ import annotations
 
@@ -37,12 +45,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.layers import ParamTree
 
 COMPUTE_DTYPE = torch.bfloat16
+MTP_WEIGHT = 0.3
 ATTN_FAMILIES = ("dense", "vlm", "audio", "encoder")
 
 
@@ -71,6 +81,14 @@ class LM(nn.Module):
 
     def forward(self, batch: dict) -> torch.Tensor:
         return forward(self, self.cfg, batch)
+
+
+def make_trainable(params: LM) -> LM:
+    """Switches every parameter of `params` to require grad (in place;
+    the train path's, never serving's). Returns params."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
 
 
 # ------------------------------------------------------------------ blocks
@@ -138,6 +156,13 @@ def mamba_block_apply(p, h, cfg):
     _, xBC, _ = ssm._split_in(proj, cfg)
     conv_tail = xBC[:, -(ssm.CONV_K - 1):, :]
     return h + y, s_final, conv_tail
+
+
+def mamba_block_train(p, h, cfg):
+    """The block's output alone (the train path: no cache to hand
+    over)."""
+    return h + ssm.mamba2_apply(p["mixer"], layers.apply_norm(
+        h, p["ln"], cfg.norm), cfg)[0]
 
 
 def mamba_block_decode(p, h, cfg, s, conv):
@@ -244,26 +269,111 @@ def _attn_layers(params, cfg):
     return [(b, False) for b in params.blocks]
 
 
+# ------------------------------------------------------------------ remat
+def _save_no_batch_dots(ctx, op, *args, **kwargs):
+    """`checkpoint_dots_with_no_batch_dims`: keep the outputs of matrix
+    products without a batch dimension, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat):
+    """fn, or fn under `torch.utils.checkpoint`: "full" keeps only its
+    inputs and recomputes the rest in the backward; "dots" also keeps
+    the outputs of its batch-free matrix products."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        return lambda *a: ckpt.checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _save_no_batch_dots))
+    raise ValueError(f"remat must be none, dots or full; got {remat!r}")
+
+
 # ---------------------------------------------------------------- forward
-def forward(params, cfg, batch):
-    """Full-sequence forward. Returns logits [B, S', vocab] (the MoE aux
-    loss is the train path's)."""
+def forward(params, cfg, batch, *, remat="none", with_aux=False):
+    """Full-sequence forward. Returns logits [B, S', vocab], or (logits,
+    the MoE aux loss summed over layers, f32) with `with_aux`. `remat`
+    ("none", "dots", "full") checkpoints each block (each hybrid group)
+    as the reference's scan body."""
     h = embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), device=h.device)
     if cfg.family == "ssm":
+        block = _maybe_remat(mamba_block_train, remat)
         for blk in params.blocks:
-            h, _, _ = mamba_block_apply(blk, h, cfg)
+            h = block(blk, h, cfg)
     elif cfg.family == "hybrid":
         h0 = h
-        for group in params.blocks:
+
+        def group_apply(group, hh):
             for blk in group:
-                h, _, _ = mamba_block_apply(blk, h, cfg)
+                hh = mamba_block_train(blk, hh, cfg)
             za, _, _ = dense_block_apply(params.shared,
-                                         _shared_in(params, h, h0), cfg)
-            h = h + za
+                                         _shared_in(params, hh, h0), cfg)
+            return hh + za
+        group_apply = _maybe_remat(group_apply, remat)
+        for group in params.blocks:
+            h = group_apply(group, h)
     else:
+        block = _maybe_remat(
+            lambda blk, hh, is_moe: dense_block_apply(blk, hh, cfg,
+                                                      is_moe)[:2], remat)
         for blk, is_moe in _attn_layers(params, cfg):
-            h, _, _ = dense_block_apply(blk, h, cfg, is_moe)
-    return lm_head(params, cfg, h)
+            h, a = block(blk, h, is_moe)
+            aux = aux + a
+    logits = lm_head(params, cfg, h)
+    return (logits, aux) if with_aux else logits
+
+
+# ------------------------------------------------------------------- loss
+def cross_entropy(logits, labels, mask):
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1)
+
+
+def loss_fn(params, cfg, batch, *, remat="none"):
+    """Next-token cross entropy (audio: the frame labels; a VLM's patch
+    positions excluded), plus DeepSeek's MTP loss at MTP_WEIGHT and
+    0.01 * the MoE aux loss. Returns (loss, {"loss": loss, "aux":
+    aux})."""
+    logits, aux = forward(params, cfg, batch, remat=remat, with_aux=True)
+    if cfg.family == "audio":
+        labels = batch["labels"]
+        loss = cross_entropy(logits, labels,
+                             torch.ones(labels.shape, device=logits.device))
+    else:
+        tokens = batch["tokens"]
+        npfx = cfg.n_patches
+        lg = logits[:, npfx:-1] if npfx else logits[:, :-1]
+        labels = tokens[:, 1:]
+        loss = cross_entropy(lg, labels,
+                             torch.ones(labels.shape, device=logits.device))
+        if cfg.mtp:
+            loss = loss + MTP_WEIGHT * _mtp_loss(params, cfg, batch, logits)
+    loss = loss + 0.01 * aux
+    return loss, {"loss": loss, "aux": aux}
+
+
+def _mtp_loss(params, cfg, batch, main_logits):
+    """DeepSeek-V3 multi-token prediction: predict t+2 from h_t ++ emb(t+1)
+    (the embedding of the ground-truth next token, as in the paper's MTP
+    module)."""
+    tokens = batch["tokens"]
+    h_in = _tokens(params, tokens[:, :-2])
+    nxt = _tokens(params, tokens[:, 1:-1])
+    z = torch.cat([h_in, nxt], dim=-1) @ params.mtp_proj.to(COMPUTE_DTYPE)
+    z, _, _ = dense_block_apply(params.mtp_block, z, cfg)
+    logits = lm_head(params, cfg, z)
+    labels = tokens[:, 2:]
+    return cross_entropy(logits, labels,
+                         torch.ones(labels.shape, device=logits.device))
 
 
 # ------------------------------------------------------------------ cache

@@ -1,0 +1,10 @@
+"""AdamW and the learning-rate schedules (counterpart of
+`repro.optim`)."""
+from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
+                                     adamw_update, apply_updates,
+                                     global_norm)
+from repro_torch.optim.schedule import cosine_schedule, linear_warmup_cosine
+
+__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
+           "apply_updates", "global_norm", "cosine_schedule",
+           "linear_warmup_cosine"]

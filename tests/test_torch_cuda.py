@@ -270,3 +270,133 @@ def test_dht_kernels(dev):
     for g, w in zip(dht_probe.dht_lookup(got[0], got[1], keys),
                     dht_probe.dht_lookup_plain(got[0], got[1], keys)):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------------------ gradients
+GRAD_ATTN_SHAPES = [  # B, Sq, Skv, H, KV, dh, causal, window, dtype
+    (2, 256, 256, 4, 2, 64, True, None, torch.bfloat16),   # wgmma, P bf16
+    (1, 200, 200, 4, 1, 192, True, 64, torch.bfloat16),    # three slabs
+    (2, 128, 128, 4, 2, 32, True, None, torch.float32),    # fma
+    (1, 96, 160, 4, 4, 64, False, None, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,dh,causal,win,dtype",
+                         GRAD_ATTN_SHAPES)
+def test_flash_attention_gradients_on_the_card(dev, B, Sq, Skv, H, KV, dh,
+                                               causal, win, dtype):
+    """With inputs that require grad the kernel still runs the forward
+    (one launch of its variant) and the gradients are autograd's through
+    the plain version on the same inputs."""
+    rng = np.random.RandomState(Sq + dh)
+    raw = [rng.randn(B, S, h, dh).astype(np.float32)
+           for S, h in ((Sq, H), (Skv, KV), (Skv, KV), (Sq, H))]
+    g = torch.from_numpy(raw[3]).to(dev, dtype)
+
+    def grads(fn):
+        ts = [torch.from_numpy(a).to(dev, dtype).requires_grad_()
+              for a in raw[:3]]
+        out = fn(*ts, causal=causal, window=win)
+        out.backward(g)
+        return out, [t.grad for t in ts]
+
+    fa = ops.flash_attention
+    before = fa.launches
+    out, got = grads(fa)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    out_p, want = grads(flash_attention_plain)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), out_p.float(), atol=tol,
+                               rtol=tol)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("b,S,H,P,N,chunk", [(2, 256, 3, 64, 128, 128),
+                                             (1, 64, 2, 8, 16, 16)])
+def test_ssd_scan_gradients_on_the_card(dev, b, S, H, P, N, chunk):
+    rng = np.random.RandomState(S + N)
+    raw = [rng.randn(b, S, H, P), rng.rand(b, S, H) * 0.5 + 0.01,
+           -(rng.rand(H) * 4 + 0.5), rng.randn(b, S, N), rng.randn(b, S, N),
+           rng.randn(b, S, H, P), rng.randn(b, H, P, N)]
+    raw = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in raw]
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in raw[:5]]
+        y, s = fn(*ts, chunk=chunk)
+        torch.autograd.backward((y, s), (raw[5], raw[6]))
+        return (y, s), [t.grad for t in ts]
+
+    before = ops.ssd_scan.launches
+    out, got = grads(ops.ssd_scan)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    assert "SSDScanFn" in type(out[0].grad_fn).__name__
+    out_p, want = grads(ssd_scan_plain)
+    for o, w in zip(out, out_p):
+        torch.testing.assert_close(o, w, atol=2e-4, rtol=2e-4)
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-6)
+
+
+def test_raw_kernel_paths_refuse_inputs_that_require_grad(dev):
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    q = torch.randn(1, 64, 2, 64, device=dev,
+                    dtype=torch.bfloat16).requires_grad_()
+    k = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="carries no gradient"):
+        fa_mod._launch(q, k, k, True, None)
+    x = torch.randn(1, 32, 2, 8, device=dev).requires_grad_()
+    dt = torch.rand(1, 32, 2, device=dev)
+    A = -torch.rand(2, device=dev)
+    Bm = torch.randn(1, 32, 4, device=dev)
+    with pytest.raises(RuntimeError, match="carries no gradient"):
+        ssd_mod._launch(x, dt, A, Bm, Bm, 16)
+    with torch.no_grad():                     # no graph: the raw launch
+        before = (ops.flash_attention.launches, ops.ssd_scan.launches)
+        assert fa_mod._launch(q, k, k, True, None).grad_fn is None
+        assert ssd_mod._launch(x, dt, A, Bm, Bm, 16)[0].grad_fn is None
+        assert (ops.flash_attention.launches, ops.ssd_scan.launches) == (
+            before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-130m"])
+def test_serving_launches_unchanged_and_training_step_counts(dev, arch):
+    """Serving's prefill (frozen params, grad mode on; or trainable params
+    under no_grad) launches the layer's kernel once per layer and records
+    no graph; a train step launches it once per layer too (the forward;
+    the backward recomputes the plain version) and leaves a finite
+    gradient on every parameter."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import batch_for
+    from repro_torch.models import lm
+    from repro_torch.train.step import build_train_step, init_state
+
+    cfg = get_smoke_config(arch)
+    fn = ops.ssd_scan if cfg.family == "ssm" else ops.flash_attention
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in batch_for(cfg, 2, 64, 0).items()}
+    served = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    state = init_state(cfg, torch.Generator(dev).manual_seed(0), dev)
+    for params, mode in ((served, torch.enable_grad),
+                         (state.params, torch.no_grad)):
+        before = fn.launches
+        with mode():
+            logits, _ = lm.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        assert fn.launches == before + cfg.n_layers
+        assert logits.grad_fn is None
+    step = build_train_step(cfg, remat="none")
+    before = fn.launches
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert fn.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(metrics["loss"]))
+    for name, p in state.params.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name

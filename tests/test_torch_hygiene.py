@@ -48,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.analysis.locklint, repro_torch.analysis.model, "
             "repro_torch.analysis.mutants, repro_torch.core.api, "
             "repro_torch.models.moe, repro_torch.models.mla, "
-            "repro_torch.launch.smoke_models; "
+            "repro_torch.launch.smoke_models, repro_torch.optim, "
+            "repro_torch.train, repro_torch.checkpoint, "
+            "repro_torch.runtime, repro_torch.launch.train, "
+            "repro_torch.examples.train_lm; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -141,6 +144,26 @@ def test_locklint_and_shims_default_to_cuda_and_raise_without_it(no_cuda):
                  lambda: api.RMARWLock(P=4, fanout=(2,)).run()):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
+
+
+def test_training_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.runtime import Trainer
+    from repro_torch.train.step import init_state
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    for call in (lambda: init_state(cfg, torch.Generator()),
+                 lambda: Trainer(cfg, str(tmp_path)),
+                 lambda: convert.state_from_reference(None, cfg),
+                 lambda: train.main(["--arch", "qwen2-0.5b", "--smoke",
+                                     "--workdir", str(tmp_path)]),
+                 lambda: train_lm.main(["--workdir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert Trainer(cfg, str(tmp_path), device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(no_cuda, capsys):
