@@ -124,6 +124,20 @@ Phases, each fails the run if it fails:
      parameters bit for bit. Prints step ms, tokens/s and peak memory
      beside the card's name and power limit; the training path's kernel
      rows come from step 0's layer-0 inputs.
+  9. Hierarchical training (`repro_torch.parallel.hierarchical`, hier):
+     2 pods on 2 x 1024 tokens each, a sync every 2 steps, 4 steps from
+     `init_hier_state` (seed), full width, bf16 compute: Qwen2-0.5B with
+     the exact (mean) sync and then with the int8 delta exchange on the
+     same batches, then Mamba2-130M with the int8 sync, one after
+     another. Checks a finite loss and grad norm at every step, synced
+     [0, 1, 0, 1], every leaf's pod rows bit-equal after each sync and
+     the pods apart after step 0, the kernel once per layer per pod in
+     every step (48; Qwen2's all on the tensor-core attention), and the
+     int8 run's parameters within 0.05 relative drift of the exact run's
+     (tests/test_system.py's bound). Prints step ms, tokens/s, peak
+     memory, each sync's ms and one sync's wire bytes (f32 vs int8;
+     nothing moves on one card); the path's kernel rows come from layer
+     0's pod-0 inputs at step 0.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the card's name and power limit, and the line before that the
@@ -1396,6 +1410,181 @@ def train_phase(seed: int, smi: str) -> list:
     return rows
 
 
+# ------------------------------------------------- hierarchical training
+# Pod-local training (`parallel.hierarchical`) at full width, bf16
+# compute, TRAIN_B x TRAIN_S tokens a step split over HIER_PODS pods,
+# a sync every HIER_T_POD steps: (arch, int8 sync) per run, in turn.
+HIER_RUNS = (("qwen2-0.5b", False), ("qwen2-0.5b", True),
+             ("mamba2-130m", True))
+HIER_PODS, HIER_T_POD, HIER_STEPS = 2, 2, 4
+# int8 vs exact relative drift of Qwen2's parameters after HIER_STEPS:
+# the reference test's bound (tests/test_system.py).
+HIER_DRIFT = 0.05
+
+
+@contextlib.contextmanager
+def timed_syncs(times: list):
+    """Inside the block every cross-pod sync appends its CUDA-event ms to
+    `times`."""
+    import torch
+
+    from repro_torch.parallel import hierarchical as hier
+    saved = (hier._mean_sync, hier._compressed_sync)
+
+    def timed(fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            return out
+        return run
+
+    hier._mean_sync, hier._compressed_sync = map(timed, saved)
+    try:
+        yield
+    finally:
+        hier._mean_sync, hier._compressed_sync = saved
+
+
+def hier_run(cfg, compress: bool, kernel: str, seed: int, smi: str):
+    """HIER_STEPS hierarchical steps from `init_hier_state` (seed), the
+    counters reset before. Checks a finite loss (the pods' mean, so every
+    pod's) and grad norm at every step, the sync cadence, every leaf's
+    pod rows bit-equal after each sync (the anchor's too) and the pods
+    apart after step 0, the kernel once per layer per pod in every step
+    (Qwen2's the tensor-core attention). Returns (state, the kernel's
+    launches in all, layer 0's pod-0 kernel inputs at step 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import batch_for
+    from repro_torch.models import layers, ssm
+    from repro_torch.parallel.hierarchical import (build_hier_train_step,
+                                                   init_hier_state)
+    dev = torch.device("cuda")
+    mod = layers if kernel == "flash_attention" else ssm
+    name = f"hier {cfg.name} ({'int8' if compress else 'exact'} sync)"
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_hier_state(cfg, torch.Generator(dev).manual_seed(seed),
+                            HIER_PODS, compress=compress, device=dev)
+    step_fn = build_hier_train_step(cfg, HIER_PODS, HIER_T_POD,
+                                    compress=compress, remat="none")
+    per_step, losses, synced, seen, syncs, apart = [], [], [], [], [], None
+    with timed_syncs(syncs):
+        for step in range(HIER_STEPS):
+            batch = {k: torch.from_numpy(x.reshape(
+                (HIER_PODS, TRAIN_B // HIER_PODS) + x.shape[1:])).to(dev)
+                for k, x in batch_for(cfg, TRAIN_B, TRAIN_S, step,
+                                      seed=seed).items()}
+            before, t0 = kernel_counts()[kernel], time.perf_counter()
+            with first_call(mod, kernel) as first:
+                state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            per_step.append((kernel_counts()[kernel] - before,
+                             time.perf_counter() - t0))
+            if not seen:
+                args, kwargs = first[0]
+                seen.append((tuple(t.detach() for t in args), kwargs))
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            check(np.isfinite(loss) and np.isfinite(gnorm),
+                  f"{name}: step {step} loss {loss}, grad norm {gnorm}")
+            losses.append(loss)
+            synced.append(int(metrics["synced"]))
+            with torch.no_grad():
+                same = [all(bool(torch.equal(p[i], p[0]))
+                            for i in range(1, HIER_PODS))
+                        for p in state.params.values()]
+                anchored = [bool(torch.equal(a[1], a[0])) for a in
+                            (state.anchor.values() if compress else ())]
+            if synced[-1]:
+                check(all(same) and all(anchored), f"{name}: after step "
+                      f"{step}'s sync {same.count(False)} parameters and "
+                      f"{anchored.count(False)} anchors differ across pods")
+            if step == 0:
+                apart = sum(not x for x in same)
+                check(apart > 0, f"{name}: the pods are equal after step 0")
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    want = [int((s + 1) % HIER_T_POD == 0) for s in range(HIER_STEPS)]
+    check(synced == want, f"{name}: synced {synced}, not {want}")
+    per_layer = HIER_PODS * cfg.n_layers
+    check(all(n == per_layer for n, _ in per_step),
+          f"{name}: {kernel} launches per step {[n for n, _ in per_step]}, "
+          f"not {per_layer}")
+    check(launches[kernel] == per_layer * HIER_STEPS
+          and (kernel != "flash_attention" or launches[
+              "flash_attention_wgmma"] == launches[kernel]),
+          f"{name}: the run's launches {launches}")
+    numel = sum(p[0].numel() for p in state.params.values())
+    leaves = len(state.params)
+    step_s = float(np.median([dt for _, dt in per_step[1:]]))
+    print(f"{name}: {HIER_PODS} pods x {TRAIN_B // HIER_PODS} x {TRAIN_S} "
+          f"tokens, T_pod {HIER_T_POD}, {HIER_STEPS} steps; step "
+          f"{1e3 * step_s:.1f} ms median after the first (first "
+          f"{1e3 * per_step[0][1]:.1f} ms), {TRAIN_B * TRAIN_S / step_s:.1f} "
+          f"tokens/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB allocated, losses {losses}, synced {synced}, leaves apart "
+          f"after step 0 {apart} of {len(same)}, sync ms "
+          f"{[round(t, 3) for t in syncs]}; one sync's wire bytes per pod: "
+          f"f32 {4 * numel}, int8 {numel + 4 * leaves} ({numel} parameters, "
+          f"{leaves} tensors; one card moves none); launches {launches}; "
+          f"card {smi}", flush=True)
+    return state, launches[kernel], seen[0]
+
+
+def hier_phase(seed: int, smi: str) -> list:
+    """Hierarchical training at full width (HIER_RUNS): Qwen2-0.5B with
+    the exact and then the int8 sync on the same batches from the same
+    initial state, whose parameters must end within HIER_DRIFT of each
+    other, then Mamba2-130M with the int8 sync. Returns the kernels-line
+    rows of the path (layer 0's pod-0 inputs at step 0)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    rows, exact = [], None
+    for arch, compress in HIER_RUNS:
+        cfg = get_config(arch)
+        kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
+        state, launches, (args, kwargs) = hier_run(cfg, compress, kernel,
+                                                   seed, smi)
+        if not compress:
+            exact = {k: p.cpu() for k, p in state.params.items()}
+            del state
+            torch.cuda.empty_cache()
+            continue
+        if exact is not None:
+            err = norm = 0.0
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    want = exact[k].to(dev)
+                    err += float(torch.sum((want - p).double() ** 2))
+                    norm += float(torch.sum(want.double() ** 2))
+            drift = (err / max(norm, 1e-12)) ** 0.5
+            print(f"hier {arch}: int8 vs exact sync after {HIER_STEPS} "
+                  f"steps: relative parameter drift {drift:.6f} (bound "
+                  f"{HIER_DRIFT})", flush=True)
+            check(drift < HIER_DRIFT, f"{arch}: the int8 sync drifted "
+                  f"{drift} from the exact one")
+            exact = None
+        del state
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            if kernel == "flash_attention":
+                rows.append(attention_row("wgmma", args, kwargs, launches,
+                                          f"/hier-{arch}"))
+            else:
+                rows.append(ssd_row(args, kwargs, launches, f"/hier-{arch}"))
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_times(fn, prefix: str, n: int = 10, tries: int = 5,
                  floor_ms: float = 0.0) -> dict:
     """{CUDA kernel: (launches per call, device ms per call)} of fn(),
@@ -2046,6 +2235,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels += train_phase(args.seed, smi)
     print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    kernels += hier_phase(args.seed, smi)
+    print(f"hier phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,8 +12,9 @@ the arguments `benchmarks/run.py` gives the reference's, on `--device`
 (CUDA unless "cpu"), writes results/bench/<section>_torch.csv and
 prints a summary. Simulated latencies / throughputs come from the
 calibrated cost model. `--tune` runs `repro_torch.bench.tune`'s
-auto-tuner. The roofline section is not ported yet (ROADMAP.md queue 1
-item 7): asking for it raises. Counterpart of `benchmarks/run.py`.
+auto-tuner. The roofline section waits for the dry run of every (arch x
+shape x mesh) cell (ROADMAP.md queue 1 item 7d): asking for it raises.
+Counterpart of `benchmarks/run.py`.
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ def sections(only):
     names = set(only.split(","))
     if "roofline" in names:
         raise ValueError("the roofline section is not ported to the "
-                         "PyTorch package yet (ROADMAP.md queue 1 item 7, "
+                         "PyTorch package yet (ROADMAP.md queue 1 item 7d, "
                          "with launch/dryrun)")
     unknown = names - set(SECTIONS)
     if unknown:

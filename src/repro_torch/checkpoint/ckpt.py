@@ -13,7 +13,8 @@ memory order.
 blocks only on the device-to-host copy, a background thread writes.
 
 Restoring onto another device layout (the reference's `sharding_tree`)
-waits for the `parallel/` port (ROADMAP.md queue 1 item 7).
+waits for training on a mesh of cards (ROADMAP.md queue 1 item 7e; the
+per-layer placements are `parallel.sharding.layer_placements`).
 """
 from __future__ import annotations
 
@@ -151,8 +152,8 @@ def load_checkpoint(ckpt_dir: str, step: int, like: Any,
     module in it is restored in place). Returns (tree, manifest)."""
     if sharding_tree is not None:
         raise NotImplementedError(
-            "load_checkpoint: restoring onto a sharded layout needs the "
-            "parallel/ port (ROADMAP.md queue 1 item 7)")
+            "load_checkpoint: restoring onto a sharded layout needs "
+            "training on a mesh of cards (ROADMAP.md queue 1 item 7e)")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)

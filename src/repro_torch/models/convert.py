@@ -13,7 +13,8 @@ as they are (f32).
 
 `state_from_reference` carries a whole reference train state across
 (params, AdamW step / m / v, step), so that both packages can continue
-training from the same state.
+training from the same state; `hier_state_from_reference` does the same
+for a pod-local `HierState` (every tensor with a leading pod axis).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.lm import LM, make_trainable
 from repro_torch.optim import AdamWState
+from repro_torch.parallel.hierarchical import HierState
 from repro_torch.train.step import TrainState
 
 STACKED = ("blocks", "dense_blocks", "moe_blocks")
@@ -47,6 +49,15 @@ def _leading(node):
     return None
 
 
+def stack_depth(cfg, group: str) -> int:
+    """How many leading (layer) axes the reference stacks on a parameter
+    group: 2 for a hybrid's blocks [G, period, ...], 1 for the other
+    stacked groups, 0 for the unstacked ones."""
+    if group not in STACKED:
+        return 0
+    return 2 if cfg.family == "hybrid" and group == "blocks" else 1
+
+
 def from_reference(np_params: dict, cfg, device=None) -> LM:
     """The reference's params (nested dict of numpy arrays) as an `LM` on
     `device` (CUDA unless given)."""
@@ -69,8 +80,7 @@ def from_reference(np_params: dict, cfg, device=None) -> LM:
     groups = {}
     for name, node in np_params.items():
         if name in STACKED:
-            depth = 2 if cfg.family == "hybrid" and name == "blocks" else 1
-            groups[name] = split(node, depth)
+            groups[name] = split(node, stack_depth(cfg, name))
         elif isinstance(node, dict):
             groups[name] = _tree(node, tensor)
         else:
@@ -98,3 +108,54 @@ def state_from_reference(np_state, cfg, device=None):
         opt=AdamWState(step=scalar(opt.step), m=moments(opt.m),
                        v=moments(opt.v)),
         step=scalar(np_state.step))
+
+
+def _podded(tree, like, cfg, device):
+    """A reference tree with a leading pod axis on every leaf (or a
+    scalar placeholder per leaf, shaped like `like`'s leaves without
+    that axis) as name -> [n_pods, ...] tensors (or name -> scalar)."""
+    def leaves(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from leaves(v)
+        else:
+            yield np.asarray(node)
+
+    if all(a.ndim == 0 for a in leaves(tree)):
+        # Placeholders: each scalar broadcast to its leaf's shape goes
+        # through the per-layer split, then one element of it is kept.
+        def spread(t, ref):
+            if isinstance(t, dict):
+                return {k: spread(v, ref[k]) for k, v in t.items()}
+            return np.broadcast_to(np.asarray(t), np.asarray(ref).shape[1:])
+        named = from_reference(spread(tree, like), cfg, "cpu")
+        return {k: p.detach().reshape(-1)[0].clone().to(device)
+                for k, p in named.named_parameters()}
+    n_pods = next(leaves(tree)).shape[0]
+    pods = [dict(from_reference(_tree(tree, lambda a, i=i: a[i]), cfg,
+                                device).named_parameters())
+            for i in range(n_pods)]
+    return {k: torch.stack([pod[k].detach() for pod in pods])
+            for k in pods[0]}
+
+
+def hier_state_from_reference(np_state, cfg, device=None) -> HierState:
+    """The reference's `parallel.hierarchical.HierState` (every leaf a
+    numpy array: params, opt, anchor and err podded [n_pods, ...], or
+    anchor and err scalar placeholders without compression; opt.step
+    [n_pods]; step []) as the port's `HierState` on `device`."""
+    device = resolve_device(device)
+    opt = np_state.opt
+
+    def ints(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+    like = np_state.params
+    return HierState(
+        params=_podded(like, like, cfg, device),
+        opt=AdamWState(step=ints(opt.step),
+                       m=_podded(opt.m, like, cfg, device),
+                       v=_podded(opt.v, like, cfg, device)),
+        anchor=_podded(np_state.anchor, like, cfg, device),
+        err=_podded(np_state.err, like, cfg, device),
+        step=ints(np_state.step))

@@ -33,6 +33,11 @@ same dict with "len" advanced.
 Devices: `init_params` and `make_cache` run on CUDA unless given
 another device (`device="cpu"`, or "meta" for shapes only).
 
+Activations carry the reference's logical sharding constraints
+(`parallel.constrain.constrain`: the embedding, each block's output, the
+logits); they return their input unless a launcher maps the logical
+axes to a mesh and the tensors are DTensors.
+
 Training: parameters are built frozen (`requires_grad=False`), so
 serving never records a graph; `make_trainable` switches them on, and
 only the train path calls it. Gradients reach the attention and SSD
@@ -50,6 +55,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.layers import ParamTree
+from repro_torch.parallel.constrain import constrain
 
 COMPUTE_DTYPE = torch.bfloat16
 MTP_WEIGHT = 0.3
@@ -123,7 +129,7 @@ def dense_block_apply(p, h, cfg, use_moe: bool = False):
         f, aux = moe.moe_apply(p["ffn"], hn, cfg)
     else:
         f, aux = layers.mlp_apply(p["ffn"], hn, cfg.mlp), 0.0
-    return h + f, aux, kv
+    return constrain(h + f, "dp", None, None), aux, kv
 
 
 def dense_block_decode(p, h, cfg, ck, cv, length, use_moe: bool = False):
@@ -155,14 +161,14 @@ def mamba_block_apply(p, h, cfg):
     proj = hn @ p["mixer"]["in_proj"].to(h.dtype)
     _, xBC, _ = ssm._split_in(proj, cfg)
     conv_tail = xBC[:, -(ssm.CONV_K - 1):, :]
-    return h + y, s_final, conv_tail
+    return constrain(h + y, "dp", None, None), s_final, conv_tail
 
 
 def mamba_block_train(p, h, cfg):
     """The block's output alone (the train path: no cache to hand
     over)."""
-    return h + ssm.mamba2_apply(p["mixer"], layers.apply_norm(
-        h, p["ln"], cfg.norm), cfg)[0]
+    return constrain(h + ssm.mamba2_apply(p["mixer"], layers.apply_norm(
+        h, p["ln"], cfg.norm), cfg)[0], "dp", None, None)
 
 
 def mamba_block_decode(p, h, cfg, s, conv):
@@ -215,7 +221,7 @@ def lm_head(params, cfg, h):
     p = params.embed
     h = layers.apply_norm(h, p["ln_f"], cfg.norm)
     w = (p["tok"].T if cfg.tie_embeddings else p["head"]).to(h.dtype)
-    return h @ w
+    return constrain(h @ w, "dp", None, "tp")
 
 
 # ------------------------------------------------------------- init params
@@ -300,7 +306,7 @@ def forward(params, cfg, batch, *, remat="none", with_aux=False):
     the MoE aux loss summed over layers, f32) with `with_aux`. `remat`
     ("none", "dots", "full") checkpoints each block (each hybrid group)
     as the reference's scan body."""
-    h = embed_inputs(params, cfg, batch)
+    h = constrain(embed_inputs(params, cfg, batch), "dp", None, None)
     aux = torch.zeros((), device=h.device)
     if cfg.family == "ssm":
         block = _maybe_remat(mamba_block_train, remat)
@@ -418,7 +424,7 @@ def prefill(params, cfg, batch):
         return forward(params, cfg, batch), {
             "len": torch.tensor(x.shape[1], dtype=torch.int32,
                                 device=x.device)}
-    h = embed_inputs(params, cfg, batch)
+    h = constrain(embed_inputs(params, cfg, batch), "dp", None, None)
     cache: Dict[str, Any] = {"len": torch.tensor(h.shape[1],
                                                  dtype=torch.int32,
                                                  device=h.device)}

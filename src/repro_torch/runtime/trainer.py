@@ -2,8 +2,9 @@
 `repro.runtime.trainer`).
 
   * the train step runs eagerly on one device (CUDA unless given
-    another); a mesh waits for the `parallel/` port (ROADMAP.md queue 1
-    item 7);
+    another); a mesh waits for training on a mesh of cards (ROADMAP.md
+    queue 1 item 7e), which will place the parameters by
+    `parallel.sharding.layer_placements`;
   * deterministic data via data.synthetic keyed by the global step, so
     restarts replay the exact stream (the prefetch thread also copies
     each batch to the device);
@@ -55,9 +56,9 @@ class Trainer:
                  mesh=None, shardings=None, device=None):
         if mesh is not None or shardings is not None:
             raise NotImplementedError(
-                "Trainer: a mesh or shardings need the parallel/ port "
-                "(ROADMAP.md queue 1 item 7); the port trains on one "
-                "device")
+                "Trainer: a mesh or shardings need training on a mesh "
+                "of cards (ROADMAP.md queue 1 item 7e); the port trains "
+                "on one device")
         self.cfg, self.workdir, self.tc = cfg, workdir, tc
         self.device = resolve_device(device)
         os.makedirs(workdir, exist_ok=True)

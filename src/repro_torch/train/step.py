@@ -6,8 +6,9 @@ autograd (through the attention and SSD kernels' autograd Functions on
 the card), the warmup-cosine learning-rate scale, AdamW. The state's
 parameters, m and v are updated in place and the returned state holds
 them; each parameter's `.grad` keeps the step's gradient until the next
-step. Single device: data-parallel gradient sync waits for the
-`parallel/` port (ROADMAP.md queue 1 item 7).
+step. Single device: pod-local replicas with a periodic sync are
+`parallel.hierarchical`; data-parallel gradient sync over several cards
+waits for training on a mesh (ROADMAP.md queue 1 item 7e).
 """
 from __future__ import annotations
 

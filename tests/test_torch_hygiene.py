@@ -51,7 +51,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.smoke_models, repro_torch.optim, "
             "repro_torch.train, repro_torch.checkpoint, "
             "repro_torch.runtime, repro_torch.launch.train, "
-            "repro_torch.examples.train_lm; "
+            "repro_torch.examples.train_lm, repro_torch.parallel.compression, "
+            "repro_torch.parallel.hierarchical, "
+            "repro_torch.parallel.sharding, repro_torch.parallel.constrain, "
+            "repro_torch.launch.mesh; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -164,6 +167,21 @@ def test_training_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert Trainer(cfg, str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def test_hier_training_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import convert
+    from repro_torch.parallel.hierarchical import init_hier_state
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    for call in (lambda: init_hier_state(cfg, torch.Generator(), 2),
+                 lambda: convert.hier_state_from_reference(None, cfg),
+                 lambda: train.main(["--arch", "qwen2-0.5b", "--smoke",
+                                     "--hier", "2", "--compress"])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(no_cuda, capsys):

@@ -201,9 +201,12 @@ def test_launch_train_smoke_on_cpu(tmp_path, capsys):
     assert "finished at step 3" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--hier", "4"], ["--compress"]])
+@pytest.mark.parametrize("flag", [["--hier", "4", "--batch", "3"],
+                                  ["--compress"]])
 def test_launch_train_refuses_pod_sync(tmp_path, flag):
-    with pytest.raises(ValueError, match="queue 1 item 7"):
+    """The pod-local sync refuses a batch that does not split over the
+    pods, and `--compress` without `--hier`."""
+    with pytest.raises(ValueError, match="does not split|needs --hier"):
         launch_train.main(["--arch", "qwen2-0.5b", "--smoke", "--workdir",
                            str(tmp_path), "--device", "cpu"] + flag)
 
