@@ -138,6 +138,17 @@ Phases, each fails the run if it fails:
      memory, each sync's ms and one sync's wire bytes (f32 vs int8;
      nothing moves on one card); the path's kernel rows come from layer
      0's pod-0 inputs at step 0.
+ 10. Dry run (`repro_torch.launch.dryrun`, dryrun) with this machine's
+     torch, in a subprocess on one CPU thread started before phase 2
+     and read after phase 9 (it launches nothing, and its fake process
+     group of 256 / 512 ranks stays out of this process): Qwen2-0.5B x
+     prefill_32k x pod16x16
+     (the attention kernel's meta path), Mamba2-130M x train_4k x
+     pod16x16 (ssd_scan's and its backward's, AdamW) and DeepSeek-V3 x
+     decode_32k x pod2x16x16 (MoE, MLA, the pod axis), as DTensors on
+     the meta device. Prints each record's line; fails unless every
+     cell is ok with its flops, bytes, collectives and kernel meta
+     calls counted. Nothing runs on the card.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the card's name and power limit, and the line before that the
@@ -1585,6 +1596,87 @@ def hier_phase(seed: int, smi: str) -> list:
     return rows
 
 
+# ------------------------------------------------------------- dry run
+# (arch, shape, multi_pod) cells lowered by phase 10, and the kernels'
+# meta-path calls each must make (remat "dots" recomputes the forward).
+DRYRUN_CELLS = (("qwen2_0p5b", "prefill_32k", False),
+                ("mamba2_130m", "train_4k", False),
+                ("deepseek_v3_671b", "decode_32k", True))
+DRYRUN_KERNELS = {"qwen2_0p5b": {"flash_attention": 24},
+                  "mamba2_130m": {"ssd_scan": 48, "ssd_scan_backward": 24},
+                  "deepseek_v3_671b": {}}
+DRYRUN_CODE = """
+import json, time
+t0 = time.perf_counter()
+from repro_torch.launch import dryrun
+for arch, shape, multi_pod in CELLS:
+    print(json.dumps(dryrun.lower_cell(arch, shape, multi_pod)), flush=True)
+print("seconds", time.perf_counter() - t0)
+"""
+
+
+def start_dryrun():
+    """Starts DRYRUN_CELLS' dry run in a subprocess on one CPU thread
+    (it runs beside the card's phases: it launches nothing) and returns
+    (process, its stdout file, its stderr file)."""
+    import os
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         DRYRUN_CODE.replace("CELLS", repr(DRYRUN_CELLS))],
+        stdout=out, stderr=err, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"))
+    return proc, out, err
+
+
+def dryrun_phase(started):
+    """The dry run (`repro_torch.launch.dryrun.lower_cell`) of
+    DRYRUN_CELLS over a fake 256 / 512-rank world with this machine's
+    torch, in the subprocess `start_dryrun` started, so that the fake
+    process group stays out of this process. Prints each record's line;
+    fails unless every cell is ok with nonzero flops, bytes and
+    collectives, the mesh and chips asked for, and its kernels'
+    meta-path calls (DRYRUN_KERNELS)."""
+    from repro_torch.launch.dryrun import fmt_line
+    proc, out, err = started
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=600)
+    finally:
+        proc.kill()
+    err.seek(0)
+    check(proc.returncode == 0, f"dry run failed: {err.read()[-3000:]}")
+    out.seek(0)
+    lines = out.read().splitlines()
+    secs = [line.split()[1] for line in lines if line.startswith("seconds")]
+    print(f"dryrun: the subprocess ran {float(secs[0]):.1f} s beside phases "
+          f"2-9; waited {time.perf_counter() - t0:.1f} s for it at the end",
+          flush=True)
+    recs = [json.loads(line) for line in lines if line.startswith("{")]
+    check(len(recs) == len(DRYRUN_CELLS), f"dry run: {len(recs)} records "
+          f"for {len(DRYRUN_CELLS)} cells")
+    for rec, (arch, shape, multi_pod) in zip(recs, DRYRUN_CELLS):
+        print(f"dryrun: {fmt_line(rec)}", flush=True)
+        check(rec["status"] == "ok", f"dry run {arch} x {shape}: "
+              f"{rec.get('error', rec.get('reason'))}")
+        check((rec["arch"], rec["shape"], rec["chips"]) ==
+              (arch, shape, 512 if multi_pod else 256),
+              f"dry run: record {rec['arch']} x {rec['shape']}")
+        check(rec["flops"] > 0 and rec["bytes"] > 0
+              and sum(rec["collectives"]["counts"].values()) > 0,
+              f"dry run {arch} x {shape}: counted nothing")
+        calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+        check(calls == DRYRUN_KERNELS[arch], f"dry run {arch} x {shape}: "
+              f"kernel meta calls {calls}, want {DRYRUN_KERNELS[arch]}")
+        print(f"dryrun: {arch} x {shape} lowered in {rec['lower_s']} s, "
+              f"flops {rec['flops']:.4e}, bytes {rec['bytes']:.4e}, "
+              f"collectives {rec['collectives']['counts']}, state "
+              f"{rec['state_bytes_per_device_lowered']} B/device (plan "
+              f"{rec['state_bytes_per_device']})", flush=True)
+
+
 def kernel_times(fn, prefix: str, n: int = 10, tries: int = 5,
                  floor_ms: float = 0.0) -> dict:
     """{CUDA kernel: (launches per call, device ms per call)} of fn(),
@@ -2213,11 +2305,30 @@ def main(argv=None) -> int:
           "(cuobjdump -sass)", flush=True)
     check(hgmma > 0, "the tensor-core attention kernel has no HGMMA")
 
+    dryrun = start_dryrun()
+    try:
+        kernels = run_phases(args.seed, smi)
+        t0 = time.perf_counter()
+        dryrun_phase(dryrun)
+        print(f"dryrun phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        dryrun[0].kill()
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(seed: int, smi: str) -> list:
+    """Phases 2-9; returns the kernels line's rows."""
     t0 = time.perf_counter()
-    kernels = dht_phase(args.seed)
+    kernels = dht_phase(seed)
     print(f"dht phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    kernels += serve_phase(args.seed)
+    kernels += serve_phase(seed)
     print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     from_examples = fig6_phase()
@@ -2233,18 +2344,12 @@ def main(argv=None) -> int:
     locklint_phase()
     print(f"locklint phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    kernels += train_phase(args.seed, smi)
+    kernels += train_phase(seed, smi)
     print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    kernels += hier_phase(args.seed, smi)
+    kernels += hier_phase(seed, smi)
     print(f"hier phase: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

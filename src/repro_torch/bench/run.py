@@ -7,14 +7,16 @@
 Sections: lb, ecsb, sob, wcsb, warb (Fig. 3), rw (Fig. 5), tdc, tl, tr
 (Fig. 4), dht (Fig. 6), table (the batched DHT's wall clock), kernels
 (the CUDA kernels against their plain versions; CUDA only), faults
-(crash injection + lease recovery). Each calls the port's function with
+(crash injection + lease recovery), roofline (the dry run's table). Each
+calls the port's function with
 the arguments `benchmarks/run.py` gives the reference's, on `--device`
 (CUDA unless "cpu"), writes results/bench/<section>_torch.csv and
 prints a summary. Simulated latencies / throughputs come from the
 calibrated cost model. `--tune` runs `repro_torch.bench.tune`'s
-auto-tuner. The roofline section waits for the dry run of every (arch x
-shape x mesh) cell (ROADMAP.md queue 1 item 7d): asking for it raises.
-Counterpart of `benchmarks/run.py`.
+auto-tuner. The roofline section prints the pod16x16 table of the dry
+run's records (`python -m repro_torch.launch.dryrun` writes them to
+results/dryrun/), or a hint to run it first. Counterpart of
+`benchmarks/run.py`.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ RESULTS = os.path.abspath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "results", "bench"))
 
 SECTIONS = ("lb", "ecsb", "sob", "wcsb", "warb", "rw", "tdc", "tl", "tr",
-            "dht", "table", "kernels", "faults")
+            "dht", "table", "kernels", "roofline", "faults")
 
 
 def coerce_scalars(rows):
@@ -75,15 +77,10 @@ def show(title, rows, cols):
 
 def sections(only):
     """The sections to run: all of SECTIONS, or the comma list `only`
-    (a ValueError for the roofline, which is not ported, and for a
-    name that is not a section)."""
+    (a ValueError for a name that is not a section)."""
     if only is None:
         return set(SECTIONS)
     names = set(only.split(","))
-    if "roofline" in names:
-        raise ValueError("the roofline section is not ported to the "
-                         "PyTorch package yet (ROADMAP.md queue 1 item 7d, "
-                         "with launch/dryrun)")
     unknown = names - set(SECTIONS)
     if unknown:
         raise ValueError(f"unknown sections {sorted(unknown)}; the "
@@ -196,6 +193,9 @@ def main(argv=None):
         if not args.quick:
             faults.write_payload(payload, os.path.join(
                 RESULTS, "BENCH_faults_torch.json"))
+    if "roofline" in want:
+        from repro_torch.bench import roofline
+        print("\n" + roofline.report(mesh="pod16x16"))
     print(f"\nbenchmarks complete; csv in {RESULTS}")
 
 

@@ -41,6 +41,11 @@ gradient algorithm: the reference trains through XLA's autodiff of
 kernel exists. Otherwise (serving, `torch.no_grad()`) the call launches
 directly, and that raw path refuses an input that requires grad while
 grad mode is on, so a launch can never drop a gradient.
+
+On the meta device (a dry run) a call launches nothing: it returns an
+empty output and reports its operations and bytes to `kernels.meta`'s
+recorder, and so does its backward. On DTensors a call runs on every
+rank's shards, sharded over batch and heads (`parallel.spmd`).
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
+from repro_torch.parallel import spmd
 
 NEG_INF = -1e30
 # The tensor-core variant's widest head_dim: three 64-column slabs. A
@@ -130,7 +136,7 @@ def _check(q, k, v, window):
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, _, H, dh = q.shape
     if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh
@@ -171,6 +177,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if grad.device.type == "meta":
+            return _meta_backward(ctx, grad)
         inputs = [t.detach().requires_grad_(need) for t, need in
                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
@@ -182,12 +190,32 @@ class FlashAttentionFn(torch.autograd.Function):
                      for t in inputs) + (None, None)
 
 
+def _flops(q, k, causal, window) -> int:
+    return meta.attention_flops(tuple(q.shape), k.shape[1], causal, window)
+
+
+def _meta_backward(ctx, grad):
+    """The backward on the meta device: empty input gradients, its cost
+    reported (`kernels.meta`)."""
+    saved = ctx.saved_tensors
+    grads = [torch.empty_like(t) if need else None
+             for t, need in zip(saved, ctx.needs_input_grad)]
+    meta.record("flash_attention_backward",
+                meta.BACKWARD_FACTOR * _flops(saved[0], saved[1],
+                                              ctx.causal, ctx.window),
+                meta.nbytes(*saved, grad, *[g for g in grads if g is not None]))
+    return tuple(grads) + (None, None)
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: [B,Sq,H,dh]; k,v: [B,Skv,KV,dh] -> [B,Sq,H,dh] in q's dtype."""
+    if spmd.is_dtensor(q):
+        return spmd.attention(flash_attention, q, k, v, causal=causal,
+                              window=window)
     _check(q, k, v, window)
     if _needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window)
@@ -195,10 +223,15 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 
 
 def _launch(q, k, v, causal, window):
-    """The kernel launch (the plain version for CPU tensors), without a
-    gradient: refuses inputs that require one while grad mode is on."""
+    """The kernel launch (the plain version for CPU tensors, the meta
+    path for meta ones), without a gradient: refuses inputs that require
+    one while grad mode is on."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        meta.record("flash_attention", _flops(q, k, causal, window),
+                    meta.nbytes(q, k, v, q))
+        return torch.empty_like(q)
     if _needs_grad(q, k, v):
         raise RuntimeError("flash_attention: the kernel launch carries no "
                            "gradient; call flash_attention(), which routes "

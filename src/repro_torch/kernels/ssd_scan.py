@@ -34,6 +34,11 @@ autograd: the reference trains through XLA's autodiff of its jnp
 `ssd_chunked`, and no Pallas backward kernel exists. Otherwise the call
 launches directly, and that raw path refuses an input that requires
 grad while grad mode is on.
+
+On the meta device (a dry run) a call launches nothing: it returns empty
+outputs and reports its operations and bytes to `kernels.meta`'s
+recorder, and so does its backward. On DTensors a call runs on every
+rank's shards, sharded over batch and heads (`parallel.spmd`).
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
+from repro_torch.parallel import spmd
 
 MAX_CHUNK = 128
 KERNELS_PER_CALL = 4
@@ -101,7 +107,7 @@ def _check(x, dt, A, B, C):
             raise ValueError(f"ssd_scan: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd_scan: unsupported device {dev}")
     b, S, H, _ = x.shape
     if (dt.shape != (b, S, H) or A.shape != (H,) or B.shape[:2] != (b, S)
@@ -136,6 +142,8 @@ class SSDScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_y, grad_state):
+        if grad_y.device.type == "meta":
+            return _meta_backward(ctx, grad_y, grad_state)
         inputs = [t.detach().requires_grad_(need) for t, need in
                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
@@ -147,6 +155,23 @@ class SSDScanFn(torch.autograd.Function):
                      for t in inputs) + (None,)
 
 
+def _flops(x, B, chunk) -> int:
+    return meta.ssd_flops(tuple(x.shape), B.shape[-1], chunk)
+
+
+def _meta_backward(ctx, grad_y, grad_state):
+    """The backward on the meta device: empty input gradients, its cost
+    reported (`kernels.meta`)."""
+    saved = ctx.saved_tensors
+    grads = [torch.empty_like(t) if need else None
+             for t, need in zip(saved, ctx.needs_input_grad)]
+    meta.record("ssd_scan_backward",
+                meta.BACKWARD_FACTOR * _flops(saved[0], saved[3], ctx.chunk),
+                meta.nbytes(*saved, grad_y, grad_state,
+                            *[g for g in grads if g is not None]))
+    return tuple(grads) + (None,)
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -155,6 +180,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
     """x: [b,S,H,P]; dt: [b,S,H]; A: [H]; B,C: [b,S,N] (float32).
 
     Returns (y [b,S,H,P], final_state [b,H,P,N]), float32."""
+    if spmd.is_dtensor(x):
+        return spmd.ssd(ssd_scan, x, dt, A, B, C, chunk=chunk)
     _check(x, dt, A, B, C)
     S = x.shape[1]
     chunk = min(chunk, S)
@@ -167,10 +194,18 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
 
 
 def _launch(x, dt, A, B, C, chunk):
-    """The kernels' launch (the plain version for CPU tensors), without
-    a gradient: refuses inputs that require one while grad mode is on."""
+    """The kernels' launch (the plain version for CPU tensors, the meta
+    path for meta ones), without a gradient: refuses inputs that require
+    one while grad mode is on."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    if x.device.type == "meta":
+        b, _, H, P = x.shape
+        y = torch.empty_like(x)
+        state = torch.empty(b, H, P, B.shape[-1], device=x.device)
+        meta.record("ssd_scan", _flops(x, B, chunk),
+                    meta.nbytes(x, dt, A, B, C, y, state))
+        return y, state
     if _needs_grad(x, dt, A, B, C):
         raise RuntimeError("ssd_scan: the kernel launch carries no "
                            "gradient; call ssd_scan(), which routes inputs "

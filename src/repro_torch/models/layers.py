@@ -19,6 +19,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.kernels.ops import flash_attention
+from repro_torch.parallel import spmd
 
 NEG_INF = -1e30
 
@@ -117,8 +118,11 @@ def decode_attention(q, k_cache, v_cache, length, *, window=None):
     """Single-token attention against a cache (plain PyTorch).
 
     q: [B,1,H,Dh]; k_cache/v_cache: [B,S,KV,Dh]; length: tokens valid
-    (an int or a 0-dim tensor).
+    (an int or a 0-dim tensor). On DTensors: `parallel.spmd`'s.
     """
+    if spmd.is_dtensor(k_cache):
+        return spmd.decode_attention(q, k_cache, v_cache, length,
+                                     window=window)
     B, S, KV, Dh = k_cache.shape
     H = q.shape[2]
     G = H // KV
@@ -134,18 +138,33 @@ def decode_attention(q, k_cache, v_cache, length, *, window=None):
     return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, Dh).to(q.dtype)
 
 
+def cache_write(cache, at, new, n_heads: int):
+    """cache[:, at] = new in place (at: a 1-element integer tensor; on
+    DTensors `parallel.spmd`'s)."""
+    if spmd.is_dtensor(cache):
+        return spmd.cache_write(cache, at, new, n_heads)
+    return cache.index_copy_(1, at, new.to(cache.dtype))
+
+
 # ------------------------------------------------------------------- mlp
+def dense(x, w):
+    """x @ w with w cast to x's dtype (on DTensors
+    `parallel.spmd.matmul`)."""
+    w = w.to(x.dtype)
+    return spmd.matmul(x, w) if spmd.is_dtensor(x) else x @ w
+
+
 def mlp_apply(p, x, kind):
     dt = x.dtype
     if kind == "swiglu":
-        g = x @ p["w_gate"].to(dt)
-        u = x @ p["w_up"].to(dt)
-        return (F.silu(g) * u) @ p["w_down"].to(dt)
-    h = x @ p["w_up"].to(dt)
+        g = dense(x, p["w_gate"])
+        u = dense(x, p["w_up"])
+        return dense(F.silu(g) * u, p["w_down"])
+    h = dense(x, p["w_up"])
     if "b_up" in p:
         h = h + p["b_up"].to(dt)
     h = F.gelu(h, approximate="tanh")          # jax.nn.gelu's default
-    out = h @ p["w_down"].to(dt)
+    out = dense(h, p["w_down"])
     if "b_down" in p:
         out = out + p["b_down"].to(dt)
     return out
@@ -189,12 +208,15 @@ def attention_qkv(p, x, cfg, positions):
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = dense(x, p["wq"])
+    k = dense(x, p["wk"])
+    v = dense(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = (q + p["bq"].to(dt), k + p["bk"].to(dt),
                    v + p["bv"].to(dt))
+    if spmd.is_dtensor(q):
+        q, k, v = (spmd.split_heads(q, H, dh), spmd.split_heads(k, KV, dh),
+                   spmd.split_heads(v, KV, dh))
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, S, KV, dh)
     v = v.reshape(B, S, KV, dh)
@@ -213,7 +235,7 @@ def attention_apply(p, x, cfg, *, positions=None):
     q, k, v = attention_qkv(p, x, cfg, positions)
     o = flash_attention(q, k, v, causal=cfg.causal,
                         window=cfg.sliding_window)
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
+    return dense(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 
 def attention_decode(p, x, cfg, cache_k, cache_v, length):
@@ -225,8 +247,8 @@ def attention_decode(p, x, cfg, cache_k, cache_v, length):
     positions = length.reshape(1, 1).expand(B, 1)
     q, k, v = attention_qkv(p, x, cfg, positions)
     at = length.reshape(1).long()
-    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    cache_write(cache_k, at, k, cfg.n_heads)
+    cache_write(cache_v, at, v, cfg.n_heads)
     o = decode_attention(q, cache_k, cache_v, length + 1,
                          window=cfg.sliding_window)
-    return o.reshape(B, 1, -1) @ p["wo"].to(x.dtype), (cache_k, cache_v)
+    return dense(o.reshape(B, 1, -1), p["wo"]), (cache_k, cache_v)

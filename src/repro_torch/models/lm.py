@@ -55,6 +55,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.layers import ParamTree
+from repro_torch.parallel import spmd
 from repro_torch.parallel.constrain import constrain
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -158,7 +159,7 @@ def mamba_block_apply(p, h, cfg):
     hn = layers.apply_norm(h, p["ln"], cfg.norm)
     y, s_final = ssm.mamba2_apply(p["mixer"], hn, cfg)
     # conv tail for decode handoff: last CONV_K-1 pre-conv features.
-    proj = hn @ p["mixer"]["in_proj"].to(h.dtype)
+    proj = layers.dense(hn, p["mixer"]["in_proj"])
     _, xBC, _ = ssm._split_in(proj, cfg)
     conv_tail = xBC[:, -(ssm.CONV_K - 1):, :]
     return constrain(h + y, "dp", None, None), s_final, conv_tail
@@ -179,7 +180,7 @@ def mamba_block_decode(p, h, cfg, s, conv):
 
 def _shared_in(params, h, h0):
     """The hybrid shared block's input: [h, h0] @ shared_in."""
-    return torch.cat([h, h0], dim=-1) @ params.shared_in.to(h.dtype)
+    return layers.dense(torch.cat([h, h0], dim=-1), params.shared_in)
 
 
 # --------------------------------------------------------------- embedding
@@ -201,7 +202,10 @@ def init_embed(cfg, generator, device) -> dict:
 def _tokens(params, tokens):
     """Token embedding in COMPUTE_DTYPE (gathered, then cast: the same
     values as the reference's cast-then-gather)."""
-    return params.embed["tok"][tokens.long()].to(COMPUTE_DTYPE)
+    tok = params.embed["tok"]
+    if spmd.is_dtensor(tok):                     # vocabulary-parallel
+        return spmd.embedding(tok, tokens).to(COMPUTE_DTYPE)
+    return tok[tokens.long()].to(COMPUTE_DTYPE)
 
 
 def embed_inputs(params, cfg, batch):
@@ -209,8 +213,8 @@ def embed_inputs(params, cfg, batch):
     through frame_proj; a VLM's patches in front of its tokens."""
     p = params.embed
     if cfg.frame_dim:                                   # audio stub
-        return (batch["frames"].to(COMPUTE_DTYPE)
-                @ p["frame_proj"].to(COMPUTE_DTYPE))
+        return layers.dense(batch["frames"].to(COMPUTE_DTYPE),
+                            p["frame_proj"])
     tok = _tokens(params, batch["tokens"])
     if cfg.n_patches:                                   # vlm stub
         return torch.cat([batch["patches"].to(COMPUTE_DTYPE), tok], dim=1)
@@ -220,8 +224,8 @@ def embed_inputs(params, cfg, batch):
 def lm_head(params, cfg, h):
     p = params.embed
     h = layers.apply_norm(h, p["ln_f"], cfg.norm)
-    w = (p["tok"].T if cfg.tie_embeddings else p["head"]).to(h.dtype)
-    return constrain(h @ w, "dp", None, "tp")
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return constrain(layers.dense(h, w), "dp", None, "tp")
 
 
 # ------------------------------------------------------------- init params
@@ -337,6 +341,8 @@ def forward(params, cfg, batch, *, remat="none", with_aux=False):
 
 # ------------------------------------------------------------------- loss
 def cross_entropy(logits, labels, mask):
+    if spmd.is_dtensor(logits):                  # vocabulary-parallel
+        return spmd.cross_entropy(logits, labels, mask)
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
@@ -374,7 +380,7 @@ def _mtp_loss(params, cfg, batch, main_logits):
     tokens = batch["tokens"]
     h_in = _tokens(params, tokens[:, :-2])
     nxt = _tokens(params, tokens[:, 1:-1])
-    z = torch.cat([h_in, nxt], dim=-1) @ params.mtp_proj.to(COMPUTE_DTYPE)
+    z = layers.dense(torch.cat([h_in, nxt], dim=-1), params.mtp_proj)
     z, _, _ = dense_block_apply(params.mtp_block, z, cfg)
     logits = lm_head(params, cfg, z)
     labels = tokens[:, 2:]

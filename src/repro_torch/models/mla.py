@@ -16,10 +16,10 @@ import math
 
 import numpy as np
 import torch
-from torch.nn import functional as F
 
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models import layers
+from repro_torch.parallel import spmd
 
 
 def init_mla(cfg, generator, device) -> dict:
@@ -45,18 +45,16 @@ def init_mla(cfg, generator, device) -> dict:
 def _q_proj(p, x, cfg, positions):
     B, S, _ = x.shape
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    dt = x.dtype
-    cq = layers.rms_norm(x @ p["q_down"].to(dt), p["q_norm"]["w"])
-    q = (cq @ p["q_up"].to(dt)).reshape(B, S, H, dn + dr)
+    cq = layers.rms_norm(layers.dense(x, p["q_down"]), p["q_norm"]["w"])
+    q = layers.dense(cq, p["q_up"]).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
 def _kv_latent(p, x, cfg, positions):
-    dt = x.dtype
     kvlr = cfg.kv_lora_rank
-    ckv = x @ p["kv_down"].to(dt)                       # [B,S,kvlr+dr]
+    ckv = layers.dense(x, p["kv_down"])                 # [B,S,kvlr+dr]
     c, k_rope = ckv[..., :kvlr], ckv[..., kvlr:]
     c = layers.rms_norm(c, p["kv_norm"]["w"])
     k_rope = layers.apply_rope(k_rope[..., None, :], positions,
@@ -70,19 +68,18 @@ def mla_apply(p, x, cfg, *, positions=None):
     B, S, _ = x.shape
     H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
-    dt = x.dtype
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     q_nope, q_rope = _q_proj(p, x, cfg, positions)
     c, k_rope = _kv_latent(p, x, cfg, positions)
-    kv = (c @ p["kv_up"].to(dt)).reshape(B, S, H, dn + dv)
+    kv = layers.dense(c, p["kv_up"]).reshape(B, S, H, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
     # Pad V to the QK head dim so the attention kernel is reusable.
-    o = flash_attention(q, k, F.pad(v, (0, dn + dr - dv)),
+    o = flash_attention(q, k, spmd.pad_last(v, dn + dr - dv),
                         causal=True)[..., :dv]
-    return o.reshape(B, S, H * dv) @ p["wo"].to(dt), (c, k_rope)
+    return layers.dense(o.reshape(B, S, H * dv), p["wo"]), (c, k_rope)
 
 
 def mla_decode(p, x, cfg, cache_c, cache_kr, length):
@@ -99,8 +96,8 @@ def mla_decode(p, x, cfg, cache_c, cache_kr, length):
     q_nope, q_rope = _q_proj(p, x, cfg, positions)      # [B,1,H,dn/dr]
     c_new, kr_new = _kv_latent(p, x, cfg, positions)
     at = length.reshape(1).long()
-    cache_c.index_copy_(1, at, c_new.to(cache_c.dtype))
-    cache_kr.index_copy_(1, at, kr_new.to(cache_kr.dtype))
+    layers.cache_write(cache_c, at, c_new, H)
+    layers.cache_write(cache_kr, at, kr_new, H)
 
     w_kv = p["kv_up"].to(dt).reshape(kvlr, H, dn + dv)
     w_uk, w_uv = w_kv[..., :dn], w_kv[..., dn:]
@@ -115,5 +112,5 @@ def mla_decode(p, x, cfg, cache_c, cache_kr, length):
     prob = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhqs,bsc->bqhc", prob, cc)
     v = torch.einsum("bqhc,chv->bqhv", ctx, w_uv.float())
-    out = v.reshape(B, 1, H * dv).to(dt) @ p["wo"].to(dt)
+    out = layers.dense(v.reshape(B, 1, H * dv).to(dt), p["wo"])
     return out, (cache_c, cache_kr)

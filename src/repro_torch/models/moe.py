@@ -21,6 +21,7 @@ import torch
 from torch.nn import functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import spmd
 
 # Compute-dtype weights of one group of experts (gate, up and down) are
 # at most this large: 1 GiB, 12 of DeepSeek-V3's experts in bf16.
@@ -82,41 +83,59 @@ def dispatch_slots(gate_i, E: int, C: int):
     return keep, torch.where(keep, flat_e * C + pos, E * C)
 
 
-def moe_apply(p, x, cfg, *, capacity_factor=None):
-    """x: [B, S, D] -> ([B, S, D], load-balance aux loss)."""
-    B, S, D = x.shape
-    dt = x.dtype
-    E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    xf = x.reshape(T, D)
-
-    logits = (xf @ p["router"].to(dt)).float()                  # [T, E]
+def _gates(xf, router, cfg):
+    """(router logits f32 [T, E], gate weights [T, K], experts [T, K])."""
+    logits = (xf @ router.to(xf.dtype)).float()                 # [T, E]
     if cfg.router_score == "sigmoid":                # deepseek-v3 style
         scores = torch.sigmoid(logits)
-        gate_w, gate_i = _route(scores, K)
+        gate_w, gate_i = _route(scores, cfg.top_k)
         gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True),
                                           1e-9)
     else:                                            # softmax top-k
-        gate_w, gate_i = _route(logits, K)
+        gate_w, gate_i = _route(logits, cfg.top_k)
         gate_w = torch.softmax(gate_w, dim=-1)
+    return logits, gate_w, gate_i
 
-    cf = capacity_factor or cfg.capacity_factor
-    C = max(1, int(np.ceil(T * K / E * cf)))
 
+def _dispatch(xf, gate_i, E: int, C: int):
+    """(keep, slot, buf [E*C + 1, D]): the tokens scattered to their
+    experts' slots, the last row the drop slot."""
     keep, slot = dispatch_slots(gate_i, E, C)
-
-    # Dispatch: scatter tokens into [E*C + 1, D].
-    xk = xf.repeat_interleave(K, dim=0)                          # [TK, D]
-    buf = torch.zeros(E * C + 1, D, dtype=dt, device=x.device)
+    xk = xf.repeat_interleave(gate_i.shape[1], dim=0)            # [TK, D]
+    buf = torch.zeros(E * C + 1, xf.shape[1], dtype=xf.dtype,
+                      device=xf.device)
     buf.index_add_(0, slot, xk)
+    return keep, slot, buf
+
+
+def _combine(y, slot, gate_w, keep):
+    """Each token's weighted sum of its (token, k) rows of y [E*C + 1,
+    D] (the drop slot's row zero)."""
+    T, K = gate_w.shape
+    return torch.einsum("tkd,tk->td", y[slot].reshape(T, K, -1),
+                        gate_w.to(y.dtype) * keep.reshape(T, K).to(y.dtype))
+
+
+def _capacity(T: int, cfg, capacity_factor) -> int:
+    cf = capacity_factor or cfg.capacity_factor
+    return max(1, int(np.ceil(T * cfg.top_k / cfg.n_experts * cf)))
+
+
+def moe_apply(p, x, cfg, *, capacity_factor=None):
+    """x: [B, S, D] -> ([B, S, D], load-balance aux loss). On DTensors,
+    `_moe_apply_sharded`."""
+    if spmd.is_dtensor(x):
+        return _moe_apply_sharded(p, x, cfg, capacity_factor)
+    B, S, D = x.shape
+    E = cfg.n_experts
+    T = B * S
+    xf = x.reshape(T, D)
+    logits, gate_w, gate_i = _gates(xf, p["router"], cfg)
+    C = _capacity(T, cfg, capacity_factor)
+    keep, slot, buf = _dispatch(xf, gate_i, E, C)
     y = _experts(p, buf[: E * C].reshape(E, C, D))
-
-    # Combine: gather each (token, k) result and weight it.
-    y = torch.cat([y.reshape(E * C, D), y.new_zeros(1, D)])
-    gathered = y[slot].reshape(T, K, D)
-    out = torch.einsum("tkd,tk->td", gathered,
-                       gate_w.to(dt) * keep.reshape(T, K).to(dt))
-
+    out = _combine(torch.cat([y.reshape(E * C, D), y.new_zeros(1, D)]),
+                   slot, gate_w, keep)
     if cfg.n_shared_experts:
         out = out + layers.mlp_apply(p["shared"], xf, "swiglu")
     if cfg.dense_residual:
@@ -126,4 +145,91 @@ def moe_apply(p, x, cfg, *, capacity_factor=None):
     me = torch.softmax(logits, dim=-1).mean(dim=0)               # [E]
     ce = F.one_hot(gate_i[:, 0], E).float().mean(dim=0)
     aux = E * torch.sum(me * ce)
+    return out.reshape(B, S, D), aux
+
+
+def _moe_apply_sharded(p, x, cfg, capacity_factor):
+    """`moe_apply` on DTensors, per rank on its local shards: the tokens
+    stay sharded over the batch's mesh dims; the expert banks are laid
+    out 2-D as the rules give them (experts over the mesh dims that shard
+    dim 0 ('model'), the FFN width over those that shard it ('data'),
+    replicated elsewhere, so an FSDP shard is gathered first).
+
+    Each rank routes its own tokens (the capacity is per token shard,
+    as GShard's local groups) and scatters them into its experts' slots;
+    the slots are all-gathered over the FFN width's mesh dims that also
+    shard the tokens, run through the rank's slice of the FFN width, and
+    reduce-scattered back (all-reduced over the width's other dims); the
+    combined output is partial over the experts' mesh dims and becomes a
+    DTensor with `Partial` placements there, so the next op's plan
+    all-reduces it. The aux loss averages the ranks' local means.
+
+    Gradients: what a rank computes for its own experts only (the
+    dispatched tokens, the combine weights) is its share of a sum over
+    the experts' mesh dims, so those local copies take Partial gradient
+    placements there; the aux loss's routing is computed apart, whole on
+    every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    E, dt = cfg.n_experts, x.dtype
+    rep = (Replicate(),) * mesh.ndim
+
+    def part(dims, pl=rep):
+        return tuple(Partial() if i in dims else q for i, q in enumerate(pl))
+
+    xpl = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                for pl in x.placements)
+    batch = spmd.mesh_dims(x, lambda pl: pl.is_shard(0))
+    wg = p["w_gate"]
+    e_dims = spmd.mesh_dims(wg, lambda pl: pl.is_shard(0))
+    f_dims = spmd.mesh_dims(wg, lambda pl: pl.is_shard(2))
+    wpl = {n: tuple(Shard(0) if i in e_dims else Shard(fd) if i in f_dims
+                    else Replicate() for i in range(mesh.ndim))
+           for n, fd in (("w_gate", 2), ("w_up", 2), ("w_down", 1))}
+    gather = [i for i in f_dims if i in batch]
+
+    # Routing for the aux loss (whole on every rank) and for the
+    # dispatch and combine (this rank's experts' share).
+    logits, _, gate_i = _gates(
+        spmd.local(x, xpl).reshape(-1, D),
+        spmd.local(p["router"], rep, part(batch)), cfg)
+    xf = spmd.local(x, xpl, part(e_dims, xpl)).reshape(-1, D)
+    _, gate_w, _ = _gates(xf, spmd.local(p["router"], rep,
+                                         part(batch + e_dims)), cfg)
+    C = _capacity(xf.shape[0], cfg, capacity_factor)
+    keep, slot, buf = _dispatch(xf, gate_i, E, C)
+    e0 = spmd.offset(tuple(wg.shape), mesh, wpl["w_gate"])[0]
+    w = {n: spmd.local(p[n], pl, part([i for i in batch if i not in gather],
+                                      pl)).to(dt)
+         for n, pl in wpl.items()}
+    El = w["w_gate"].shape[0]
+    mine = buf[e0 * C:(e0 + El) * C].reshape(El, C, D)
+    # All-gather the slots over the width's token-sharding dims ...
+    slots = spmd.local(spmd.wrap(mine, mesh, tuple(
+        Shard(1) if i in gather else Replicate() for i in range(mesh.ndim)),
+        (El, C * spmd.size(mesh, gather), D)), rep, part(f_dims))
+    h = F.silu(torch.bmm(slots, w["w_gate"])) * torch.bmm(slots, w["w_up"])
+    y = torch.bmm(h, w["w_down"])
+    # ... and reduce-scatter the width's partial sums back.
+    y = spmd.wrap(y, mesh, part(f_dims), tuple(y.shape)).redistribute(
+        mesh, tuple(Shard(1) if i in gather else Replicate()
+                    for i in range(mesh.ndim))).to_local()
+    full = torch.cat([y.new_zeros(e0 * C, D), y.reshape(El * C, D),
+                      y.new_zeros((E - e0 - El) * C + 1, D)])
+    out = _combine(full, slot, gate_w, keep)
+    out = spmd.wrap(out, mesh, tuple(
+        Shard(0) if i in batch else Partial() if i in e_dims
+        else Replicate() for i in range(mesh.ndim)), (B * S, D))
+    xg = x.reshape(B * S, D)
+    if cfg.n_shared_experts:
+        out = out + layers.mlp_apply(p["shared"], xg, "swiglu")
+    if cfg.dense_residual:
+        out = out + layers.mlp_apply(p["dense"], xg, cfg.mlp)
+    me = spmd.reduce(torch.softmax(logits, dim=-1).mean(dim=0), mesh, batch,
+                     "avg")
+    ce = spmd.reduce(F.one_hot(gate_i[:, 0], E).float().mean(dim=0), mesh,
+                     batch, "avg")
+    aux = spmd.wrap(E * torch.sum(me * ce), mesh, rep, ())
     return out.reshape(B, S, D), aux

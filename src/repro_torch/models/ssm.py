@@ -14,6 +14,7 @@ from torch.nn import functional as F
 
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.models import layers
+from repro_torch.parallel import spmd
 
 CONV_K = 4  # depthwise conv kernel width
 
@@ -64,7 +65,10 @@ def scan_chunk(chunk: int, S: int) -> int:
 
 
 def _conv1d(xBC, w, bias):
-    """Causal depthwise conv along seq. xBC: [B,S,C]; w: [K,C]."""
+    """Causal depthwise conv along seq. xBC: [B,S,C]; w: [K,C]. On
+    DTensors, per rank on its batch and channel shards."""
+    if spmd.is_dtensor(xBC):
+        return spmd.depthwise(_conv1d, xBC, w, bias)
     K = w.shape[0]
     pad = F.pad(xBC, (0, 0, K - 1, 0))
     out = sum(pad[:, i: i + xBC.shape[1]] * w[i][None, None]
@@ -78,14 +82,14 @@ def mamba2_apply(p, x, cfg):
     d_inner, nheads, conv_dim = ssm_dims(cfg)
     N = cfg.ssm_state
     dt_ = x.dtype
-    proj = x @ p["in_proj"].to(dt_)
+    proj = layers.dense(x, p["in_proj"])
     z, xBC, dt_raw = _split_in(proj, cfg)
     xBC = _conv1d(xBC, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
     xs = xBC[..., :d_inner].reshape(Bsz, S, nheads, cfg.ssm_head_dim)
     Bmat = xBC[..., d_inner: d_inner + N]
     Cmat = xBC[..., d_inner + N:]
     dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None])
-    A = -torch.exp(p["A_log"])
+    A = -torch.exp(p["A_log"].float())
     y, s_final = ssd_scan(xs.float().contiguous(), dt.contiguous(), A,
                           Bmat.float().contiguous(),
                           Cmat.float().contiguous(),
@@ -93,7 +97,7 @@ def mamba2_apply(p, x, cfg):
     y = y + xs.float() * p["D"][None, None, :, None]
     y = y.reshape(Bsz, S, d_inner).to(dt_)
     y = layers.rms_norm(y * F.silu(z), p["norm"]["w"])
-    return y @ p["out_proj"].to(dt_), s_final
+    return layers.dense(y, p["out_proj"]), s_final
 
 
 def mamba2_decode(p, x, cfg, ssm_state, conv_state):
@@ -106,7 +110,7 @@ def mamba2_decode(p, x, cfg, ssm_state, conv_state):
     d_inner, nheads, conv_dim = ssm_dims(cfg)
     N = cfg.ssm_state
     dt_ = x.dtype
-    proj = x @ p["in_proj"].to(dt_)
+    proj = layers.dense(x, p["in_proj"])
     z, xBC, dt_raw = _split_in(proj, cfg)
 
     window = torch.cat([conv_state, xBC], dim=1)          # [B,K,conv]
@@ -120,7 +124,7 @@ def mamba2_decode(p, x, cfg, ssm_state, conv_state):
     Bv = xBC1[:, 0, d_inner: d_inner + N]                 # [B,N]
     Cv = xBC1[:, 0, d_inner + N:]
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"][None])  # [B,H]
-    A = -torch.exp(p["A_log"])
+    A = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt * A[None])                       # [B,H]
     s_new = (ssm_state * decay[..., None, None]
              + torch.einsum("bhp,bn,bh->bhpn", xs.float(), Bv.float(), dt))
@@ -128,4 +132,4 @@ def mamba2_decode(p, x, cfg, ssm_state, conv_state):
     y = y + xs.float() * p["D"][None, :, None]
     y = y.reshape(Bsz, 1, d_inner).to(dt_)
     y = layers.rms_norm(y * F.silu(z), p["norm"]["w"])
-    return y @ p["out_proj"].to(dt_), s_new, new_conv
+    return layers.dense(y, p["out_proj"]), s_new, new_conv

@@ -22,7 +22,9 @@ a `shape` dict.
 The port keeps one module per layer (`models/convert.py`), so
 `layer_placements` maps the stacked specs onto the per-layer parameters
 (the stacked axes dropped) as DTensor placements per mesh dim; a spec
-that shards a stacked (layer) axis cannot be expressed there and raises.
+that shards a stacked (layer) axis cannot be expressed there and raises,
+unless the caller takes the departure (the leaf replicated over that
+axis) and lists it.
 """
 from __future__ import annotations
 
@@ -312,12 +314,15 @@ def _placements(spec: Spec, mesh, name: str):
                  for a in names)
 
 
-def layer_specs(model, mesh, *, fsdp: bool = False,
-                fsdp_axes=None) -> Dict[str, Spec]:
+def layer_specs(model, mesh, *, fsdp: bool = False, fsdp_axes=None,
+                departures=None) -> Dict[str, Spec]:
     """Parameter name of the port's `LM` -> its spec under the
-    reference's rules, the stacked (layer) axes dropped. Raises a
-    ValueError naming the leaf where a rule shards a stacked axis: the
-    port keeps one tensor per layer and cannot hold that split."""
+    reference's rules, the stacked (layer) axes dropped. Where a rule
+    shards a stacked axis (the port keeps one tensor per layer and
+    cannot hold that split), raises a ValueError naming the leaf, or,
+    given a list as `departures`, appends the leaf's reference path to
+    it (once) and keeps the spec's other entries: the parameter is
+    replicated over that axis instead."""
     from repro_torch.models.convert import stack_depth
     cfg = model.cfg
     specs = param_spec_tree(reference_shape_tree(cfg), mesh, fsdp=fsdp,
@@ -332,6 +337,11 @@ def layer_specs(model, mesh, *, fsdp: bool = False,
             spec = spec[k]
         if any(e is not None for e in spec[:depth]):
             leaf = "/".join(keys)
+            if departures is not None:
+                if leaf not in departures:
+                    departures.append(leaf)
+                out[name] = spec[depth:]
+                continue
             raise ValueError(
                 f"{cfg.name}: the rule for {leaf} {spec} shards the stacked "
                 f"layer axis, which the port's per-layer parameters "
@@ -340,12 +350,13 @@ def layer_specs(model, mesh, *, fsdp: bool = False,
     return out
 
 
-def layer_placements(model, mesh, *, fsdp: bool = False, fsdp_axes=None):
+def layer_placements(model, mesh, *, fsdp: bool = False, fsdp_axes=None,
+                     departures=None):
     """Parameter name of the port's `LM` -> a tuple of DTensor placements
     (`Shard(dim)` / `Replicate()`), one per mesh dim, for
     `torch.distributed.tensor.distribute_tensor`. Raises where
-    `layer_specs` does, and where a dim is sharded over several mesh
-    axes out of the mesh's order."""
+    `layer_specs` does (or records in `departures`), and where a dim is
+    sharded over several mesh axes out of the mesh's order."""
     return {name: _placements(spec, mesh, name) for name, spec in
-            layer_specs(model, mesh, fsdp=fsdp,
-                        fsdp_axes=fsdp_axes).items()}
+            layer_specs(model, mesh, fsdp=fsdp, fsdp_axes=fsdp_axes,
+                        departures=departures).items()}

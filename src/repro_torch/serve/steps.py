@@ -12,6 +12,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import lm
+from repro_torch.parallel import spmd
 
 
 def cache_shapes(cfg, B: int, S: int) -> Dict[str, Any]:
@@ -33,7 +34,9 @@ def build_decode_step(cfg, *, greedy: bool = True):
         with torch.no_grad():
             logits, cache = lm.decode_step(params, cfg, tokens, cache)
         if greedy:
-            nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+            last = logits[:, -1]
+            nxt = (spmd.argmax(last) if spmd.is_dtensor(last)
+                   else last.argmax(dim=-1)).to(torch.int32)
         else:
             nxt = tokens[:, -1]
         return nxt[:, None], cache

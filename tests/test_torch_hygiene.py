@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.train_lm, repro_torch.parallel.compression, "
             "repro_torch.parallel.hierarchical, "
             "repro_torch.parallel.sharding, repro_torch.parallel.constrain, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.bench.roofline, repro_torch.parallel.spmd, "
+            "repro_torch.kernels.meta; "
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
