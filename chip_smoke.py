@@ -113,7 +113,8 @@ Phases, each fails the run if it fails:
      each, whose first step's gradients with the kernels' autograd
      Functions must match autograd through the plain versions on the
      card (norm-relative, GRAD_TOL, bf16 and f32 compute); then Qwen2 6
-     steps with one closing checkpoint and Mamba2 8 steps, each in a
+     steps with a checkpoint at step 4 (phase 11 resumes from it) and a
+     closing one, and Mamba2 8 steps, each in a
      workdir under build/ deleted afterwards. Checks a finite loss at
      every step, a finite gradient on every parameter at step 0 and one
      not all zero on every attention / SSD parameter, the kernel
@@ -146,9 +147,29 @@ Phases, each fails the run if it fails:
      (the attention kernel's meta path), Mamba2-130M x train_4k x
      pod16x16 (ssd_scan's and its backward's, AdamW) and DeepSeek-V3 x
      decode_32k x pod2x16x16 (MoE, MLA, the pod axis), as DTensors on
-     the meta device. Prints each record's line; fails unless every
-     cell is ok with its flops, bytes, collectives and kernel meta
-     calls counted. Nothing runs on the card.
+     the meta device, then Qwen2-0.5B's pod-local hierarchical step
+     (`lower_hier`, `--hier 4 --compress`: train_4k on pod2x16x16,
+     lowered without and with the int8 sync). Prints each record's line;
+     fails unless every cell is ok with its flops, bytes, collectives
+     and kernel meta calls counted, and the `--hier` record is ok with
+     no cross-pod wire without the sync and its amortized wire. Nothing
+     runs on the card.
+ 11. Mesh (`Trainer(mesh=)`, mesh): phase 8's Qwen2-0.5B run resumed
+     from its step-4 checkpoint on a ("data", "model") mesh of one NCCL
+     rank per visible card ((1, 1) on one card: the DTensor path with
+     its collectives), in a subprocess (a process group is global
+     state), for the 2 steps to phase 8's closing step. Checks the
+     tensor-core attention once per layer per step in the subprocess,
+     the losses and the final parameters equal to phase 8's one-device
+     run over the same steps within its bf16 gate (5e-2: each loss
+     relative, the parameters' change over the two steps norm-relative
+     as one vector; each leaf's own error is printed: the key bias's
+     exact gradient is zero, so its values are rounding noise that AdamW
+     scales up), and the mesh's closing checkpoint restored on one
+     device with every
+     leaf equal to the mesh's `full_tensor()`. Prints step ms, peak GiB
+     and the restore's seconds with the card's name and power limit; the
+     path's kernel row comes from layer 0's inputs at step 4.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the card's name and power limit, and the line before that the
@@ -187,9 +208,10 @@ SIM_CONFIGS = {
     "quickstart_fompi_rw": dict(spec=dict(kind="fompi_rw", P=64,
                                           writer_fraction=0.02),
                                 session=dict(target_acq=8, cs_kind=1)),
-    # One acquire per process (the figures take 4): cut for the time
-    # budget (two until the training phase came).
-    "paper_rma_rw_256": dict(paper_default=("rma_rw", 256,
+    # One acquire per process (the figures take 4) and P 128 (256
+    # until the mesh phase came): cut for the time budget (two acquires
+    # until the training phase came).
+    "paper_rma_rw_128": dict(paper_default=("rma_rw", 128,
                                             dict(writer_fraction=0.02)),
                              session=dict(target_acq=1, cs_kind=0),
                              batch=64),
@@ -217,7 +239,7 @@ SIM_CONFIGS["crash_rma_rw"] = dict(SIM_CONFIGS["gate_rma_rw"],
 SIM_EXPECTED = {
     "quickstart_rma_rw": (3478, 512, 1138838875),
     "quickstart_fompi_rw": (5073, 512, 1149558392),
-    "paper_rma_rw_256": (1403, 256, 1130753679),
+    "paper_rma_rw_128": (708, 128, 1122468534),
     "gate_fompi_spin": (744, 64, 1131936403),
     "gate_fompi_rw": (1101, 64, 1130390740),
     "gate_rma_rw": (648, 64, 1126613649),
@@ -265,20 +287,20 @@ GRID_EXPECTED = (
 # Grid points (d, l, r) also run as fresh sessions: an unbounded T_L
 # (and the slowest point, at the lowest T_DC, alone too).
 GRID_FRESH = ((1, 2, 0),)
-# `benchmarks/run.py --tune`'s default workload at 2 acquires per process
-# (4 there): cut for the time budget.
+# `benchmarks/run.py --tune`'s default workload at 1 acquire per process
+# (4 there; 2 until the mesh phase came): cut for the time budget.
 TUNE_SPEC = ("rma_rw", 64, dict(writer_fraction=0.05))
-TUNE_ARGS = dict(seeds=(0, 1, 2, 3), refine_rounds=1, target_acq=2)
+TUNE_ARGS = dict(seeds=(0, 1, 2, 3), refine_rounds=1, target_acq=1)
 # The JAX reference's winner (LockSpec JSON) and its per-seed throughputs
 # (Python floats, as float64 bits).
 TUNE_EXPECTED = {
-    "spec": '{"P": 64, "T_DC": 32, "T_L": [1048576, 1], "T_R": 64, '
+    "spec": '{"P": 64, "T_DC": 64, "T_L": [1048576, 1], "T_R": 256, '
             '"cost": {"atomic_factor": 1.35, "backoff0": 1.0, '
             '"backoff_max": 32.0, "jitter": 0.08, "lat": [0.05, 0.3, 1.7, '
             '2.1, 2.4], "occupancy": 0.4, "wake": 0.1}, "fanout": [4], '
             '"kind": "rma_rw", "role_seed": 17, "writer_fraction": 0.05}',
-    "throughput_per_seed": (4698528323880353792, 4698050998931816448,
-                            4698876730553663488, 4698044509773103104),
+    "throughput_per_seed": (4699590819332489216, 4698413758312087552,
+                            4698783500772311040, 4698793977271287808),
 }
 
 
@@ -1208,6 +1230,16 @@ KERNEL_PARAMS = {"flash_attention": ("wq", "wk", "wv", "wo"),
                               "dt_bias", "D", "out_proj")}
 
 
+def train_config(arch: str, seed: int):
+    """Phase 8's TrainerConfig of `arch` (phase 11 resumes Qwen2's run
+    with it): Qwen2 checkpoints at MESH_FROM, for phase 11."""
+    from repro_torch.runtime import TrainerConfig
+    return TrainerConfig(batch=TRAIN_B, seq=TRAIN_S,
+                         ckpt_every=MESH_FROM if arch == MESH_ARCH else 1000,
+                         log_every=1, seed=seed, warmup_steps=2,
+                         total_steps=TRAIN_STEPS[arch])
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the block the model calls the kernels' plain versions
@@ -1357,14 +1389,16 @@ def train_model(cfg, kernel: str, workdir: str, tc, smi: str, *,
     return state, losses, launches[kernel], seen[0]
 
 
-def train_phase(seed: int, smi: str) -> list:
-    """Trains Qwen2-0.5B (6 steps, one closing checkpoint) and Mamba2-130M
-    (8 steps; then a run that faults at step 5 and recovers from the
-    step-4 checkpoint, whose losses and parameters must equal the
-    uninterrupted run's bit for bit) at full width with the port's
-    Trainer, each in a workdir under build/ deleted afterwards; gradient
-    parity on 2-layer copies first. Returns the kernels-line rows of
-    the training path."""
+def train_phase(seed: int, smi: str, keep: list = None) -> list:
+    """Trains Qwen2-0.5B (6 steps, a checkpoint at MESH_FROM and a
+    closing one) and Mamba2-130M (8 steps; then a run that faults at step
+    5 and recovers from the step-4 checkpoint, whose losses and
+    parameters must equal the uninterrupted run's bit for bit) at full
+    width with the port's Trainer, each in a workdir under build/
+    deleted afterwards, but for Qwen2's when a list is given as `keep`:
+    its run directory is appended there for phase 11 (whose caller
+    deletes it). Gradient parity on 2-layer copies first. Returns the
+    kernels-line rows of the training path."""
     import dataclasses
     import shutil
     import tempfile
@@ -1373,21 +1407,21 @@ def train_phase(seed: int, smi: str) -> list:
 
     from repro_torch.checkpoint import latest_step
     from repro_torch.configs import get_config
-    from repro_torch.runtime import TrainerConfig
     rows = []
     for arch in TRAIN_ARCHS:
         cfg = get_config(arch)
         kernel = "flash_attention" if cfg.family == "dense" else "ssd_scan"
         grad_parity(cfg, kernel, seed)
-        tc = TrainerConfig(batch=TRAIN_B, seq=TRAIN_S, ckpt_every=1000,
-                           log_every=1, seed=seed, warmup_steps=2,
-                           total_steps=TRAIN_STEPS[arch])
+        tc = train_config(arch, seed)
         work = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
         try:
             state, losses, launches, seen = train_model(
                 cfg, kernel, str(work / "run"), tc, smi)
             check(latest_step(str(work / "run" / "ckpt"))
                   == TRAIN_STEPS[arch], f"{arch}: no closing checkpoint")
+            if arch == MESH_ARCH and keep is not None:
+                keep.append(work)
+                work = None
             if arch == "mamba2-130m":
                 faulty = dataclasses.replace(
                     tc, fault_at_step=TRAIN_FAULT_AT,
@@ -1408,7 +1442,8 @@ def train_phase(seed: int, smi: str) -> list:
                 del again
             del state
         finally:
-            shutil.rmtree(work, ignore_errors=True)
+            if work is not None:
+                shutil.rmtree(work, ignore_errors=True)
         args, kwargs = seen
         args = tuple(t.detach() for t in args)
         with torch.no_grad():
@@ -1596,6 +1631,254 @@ def hier_phase(seed: int, smi: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------- mesh
+# Phase 11: phase 8's Qwen2 run resumed from its step-MESH_FROM
+# checkpoint through `Trainer(mesh=)` on a ("data", "model") mesh of one
+# NCCL rank per visible card, in a subprocess (a process group is global
+# state), to the same closing step; its losses and parameters held
+# against the one-device run's at phase 8's bf16 gate.
+MESH_ARCH, MESH_FROM = "qwen2-0.5b", 4
+MESH_TOL = GRAD_TOL["bfloat16"]
+MESH_CODE = """
+import sys
+root, ref, work, seed, smi = sys.argv[1:]
+sys.path[:0] = [root + "/src", root]
+import chip_smoke
+chip_smoke.mesh_world(ref, work, int(seed), smi)
+"""
+
+
+def mesh_world(ref: str, work: str, seed: int, smi: str):
+    """The subprocess of phase 11: one rank per visible card (this
+    process alone on one card, forked ranks beyond)."""
+    import torch
+    world = torch.cuda.device_count()
+    check(world > 0, "mesh phase: no CUDA device in the subprocess")
+    if world == 1:
+        mesh_rank(0, 1, ref, work, seed, smi)
+        return
+    import torch.multiprocessing as mp
+    mp.start_processes(mesh_rank, args=(world, ref, work, seed, smi),
+                       nprocs=world, start_method="spawn")
+
+
+def mesh_rank(rank: int, world: int, ref: str, work: str, seed: int,
+              smi: str):
+    """Rank `rank` of phase 11's NCCL world: resumes phase 8's Qwen2 run
+    (`ref`: its run directory) from step MESH_FROM on a (world, 1)
+    ("data", "model") mesh with `Trainer(mesh=)` in `work`, counting
+    each step's attention launches; rank 0 then checks the closing
+    checkpoint against the mesh state's `full_tensor()` on one device,
+    holds losses and parameters against phase 8's, builds the path's
+    kernel row and prints one JSON line of it all."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.checkpoint.ckpt import _leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.runtime import Trainer
+    from repro_torch.train.step import init_state
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world)
+    mesh = init_device_mesh("cuda", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_config(MESH_ARCH)
+    steps = TRAIN_STEPS[MESH_ARCH]
+    tr = Trainer(cfg, os.path.join(work, "run"), train_config(MESH_ARCH, seed),
+                 mesh=mesh)
+    restore, per_step, seen, start = [], [], [], {}
+    init_or_restore, step_fn = tr._init_or_restore, tr._step_fn
+
+    def timed_restore():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = init_or_restore()
+        torch.cuda.synchronize()
+        restore.append(time.perf_counter() - t0)
+        with torch.no_grad():             # step MESH_FROM's parameters
+            start.update((f"params/{k.replace('.', '/')}",
+                          p.full_tensor().clone())
+                         for k, p in state.params.named_parameters())
+        return state
+
+    def counted(state, batch):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        with first_call(layers, "flash_attention") as first:
+            state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        after = kernel_counts()
+        per_step.append(({k: after[k] - before[k] for k in after},
+                         time.perf_counter() - t0))
+        if not seen:
+            args, kwargs = first[0]
+            seen.append((tuple(t.to_local().detach().contiguous()
+                               for t in args), kwargs))
+        return state, metrics
+
+    tr._init_or_restore, tr._step_fn = timed_restore, counted
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.run(steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = kernel_counts()
+    if rank != 0:
+        dist.destroy_process_group()
+        return
+    with torch.no_grad():
+        whole = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                 for k, v in _leaves(state)}
+    # The mesh run's closing checkpoint, restored on one device.
+    t0 = time.perf_counter()
+    like = init_state(cfg, torch.Generator("cuda").manual_seed(seed),
+                      "cuda")
+    one, _ = load_checkpoint(os.path.join(work, "run", "ckpt"), steps, like)
+    one_s = time.perf_counter() - t0
+    differ = [k for k, v in _leaves(one)
+              if not torch.equal(v.detach(), whole[k].detach())]
+    del one, like
+    # Phase 8's one-device run over the same steps: losses and params.
+    def losses(run):
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            return {r["step"]: r["loss"] for r in map(json.loads, f)}
+    got, want = losses(os.path.join(work, "run")), losses(ref)
+    loss_err = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
+    # The two steps' change of every parameter against the one-device
+    # run's, as one vector (norm-relative), and each leaf's own error.
+    errs, diff2, step2 = {}, 0.0, 0.0
+    t0 = time.perf_counter()
+    with np.load(os.path.join(ref, "ckpt", f"step_{steps:08d}",
+                              "arrays.npz")) as end:
+        for k, w0 in start.items():
+            v = whole[k]
+            w = torch.from_numpy(end[k]).cuda()
+            d = (v.float() - w).double()
+            errs[k] = float(d.norm() / w.double().norm().clamp_min(1e-30))
+            diff2 += float((d * d).sum())
+            step2 += float(((w - w0).double() ** 2).sum())
+    compare_s = time.perf_counter() - t0
+    worst = max(errs, key=errs.get)
+    args, kwargs = seen[0]
+    with torch.no_grad():
+        row = attention_row("wgmma", args, kwargs,
+                            launches["flash_attention_wgmma"],
+                            f"/mesh-{MESH_ARCH}")
+    dist.destroy_process_group()
+    print(json.dumps({
+        "world": world, "restore_s": restore[0], "one_device_restore_s": one_s,
+        "compare_s": compare_s, "run_s": run_s,
+        "steps": [[n, dt] for n, dt in per_step], "peak_gib": peak,
+        "launches": launches, "losses": got, "ref_losses": want,
+        "loss_err": loss_err, "change_err": (diff2 / step2) ** 0.5,
+        "param_err": errs[worst], "worst": worst,
+        "differ": differ, "leaves": len(whole), "row": row}), flush=True)
+
+
+def mesh_phase(seed: int, smi: str, ref: Path) -> list:
+    """Phase 11: phase 8's Qwen2-0.5B run (`ref`: its run directory, with
+    checkpoints at MESH_FROM and at the end) resumed from step MESH_FROM
+    through `Trainer(mesh=)` on one NCCL rank per visible card, in a
+    subprocess, to the same end. Fails unless the subprocess succeeds,
+    the tensor-core attention ran once per layer in every step, the
+    losses (relative) and the parameters' change over the steps (norm-
+    relative, all leaves as one vector) equal phase 8's within MESH_TOL,
+    and the mesh's closing checkpoint restores on one
+    device with every leaf equal to its `full_tensor()`. Prints step ms,
+    peak GiB and the restore's seconds; returns the path's kernel row
+    (layer 0's inputs at step MESH_FROM)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg_layers = get_config(MESH_ARCH).n_layers
+    work = Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+    try:
+        ckpt = work / "run" / "ckpt" / f"step_{MESH_FROM:08d}"
+        shutil.copytree(ref / "ckpt" / f"step_{MESH_FROM:08d}", ckpt,
+                        copy_function=os.link)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", MESH_CODE, str(ROOT), str(ref), str(work),
+             str(seed), smi], capture_output=True, text=True, cwd=ROOT,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        check(out.returncode == 0, f"mesh phase: the subprocess failed "
+              f"(rc {out.returncode}): {out.stderr[-3000:]}")
+        lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
+        check(len(lines) == 1, f"mesh phase: no result: {out.stdout[-2000:]}")
+        res = json.loads(lines[0])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    per_step = [n for n, _ in res["steps"]]
+    want_steps = TRAIN_STEPS[MESH_ARCH] - MESH_FROM
+    ms = [1e3 * dt for _, dt in res["steps"]]
+    print(f"mesh {MESH_ARCH}: Trainer(mesh=) on {res['world']} NCCL rank(s) "
+          f"(data {res['world']}, model 1), resumed from phase 8's step "
+          f"{MESH_FROM} checkpoint: restore {res['restore_s']:.2f} s, "
+          f"{want_steps} steps of {TRAIN_B} x {TRAIN_S} tokens, step ms "
+          f"{[round(t, 1) for t in ms]}, peak {res['peak_gib']:.2f} GiB "
+          f"allocated, losses {res['losses']} vs one device "
+          f"{res['ref_losses']} (max relative error {res['loss_err']:.3e}), "
+          f"the {want_steps} steps' parameter change vs one device's "
+          f"{res['change_err']:.3e} norm-relative (gate {MESH_TOL}; worst "
+          f"leaf's final value {res['param_err']:.3e}, {res['worst']}), "
+          f"closing checkpoint restored on one device in "
+          f"{res['one_device_restore_s']:.2f} s, Trainer.run {res['run_s']:.2f} s "
+          f"(restore, steps, closing checkpoint), comparison with phase 8's "
+          f"closing checkpoint {res['compare_s']:.2f} s, leaves differing from the "
+          f"mesh's full_tensor() {res['differ']} of {res['leaves']}; "
+          f"attention launches {res['launches']}; subprocess {wall:.1f} s; "
+          f"card {smi}", flush=True)
+    check(len(per_step) == want_steps and all(
+        n["flash_attention_wgmma"] == n["flash_attention"] == cfg_layers
+        for n in per_step), f"mesh phase: attention launches per step "
+        f"{per_step}, not {cfg_layers} on the tensor-core variant in each "
+        f"of {want_steps} steps")
+    check(res["loss_err"] <= MESH_TOL, f"mesh phase: losses {res['losses']} "
+          f"vs the one-device run's {res['ref_losses']}")
+    check(res["change_err"] <= MESH_TOL, f"mesh phase: the parameters' "
+          f"change differs from the one-device run's by {res['change_err']}")
+    check(not res["differ"], f"mesh phase: the closing checkpoint restored "
+          f"on one device differs from the mesh state at {res['differ']}")
+    torch.cuda.empty_cache()
+    return [res["row"]]
+
+
+def mesh_phase_alone(seed: int, smi: str) -> list:
+    """Phase 11 without the other phases (after `build.timed_build()`):
+    phase 8's one-device Qwen2-0.5B run first, then `mesh_phase` on it.
+    Returns both paths' kernel rows."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    work = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    try:
+        cfg = get_config(MESH_ARCH)
+        _, _, launches, (args, kwargs) = train_model(
+            cfg, "flash_attention", str(work / "run"),
+            train_config(MESH_ARCH, seed), smi)
+        rows = [attention_row("wgmma", tuple(t.detach() for t in args),
+                              kwargs, launches, f"/train-{MESH_ARCH}")]
+        return rows + mesh_phase(seed, smi, work / "run")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # ------------------------------------------------------------- dry run
 # (arch, shape, multi_pod) cells lowered by phase 10, and the kernels'
 # meta-path calls each must make (remat "dots" recomputes the forward).
@@ -1605,12 +1888,17 @@ DRYRUN_CELLS = (("qwen2_0p5b", "prefill_32k", False),
 DRYRUN_KERNELS = {"qwen2_0p5b": {"flash_attention": 24},
                   "mamba2_130m": {"ssd_scan": 48, "ssd_scan_backward": 24},
                   "deepseek_v3_671b": {}}
+# The pod-sync step lowered with `--hier` (arch, T_pod, int8 sync).
+DRYRUN_HIER = ("qwen2_0p5b", 4, True)
 DRYRUN_CODE = """
 import json, time
 t0 = time.perf_counter()
 from repro_torch.launch import dryrun
 for arch, shape, multi_pod in CELLS:
     print(json.dumps(dryrun.lower_cell(arch, shape, multi_pod)), flush=True)
+arch, T_pod, compress = HIER
+print(json.dumps(dryrun.lower_hier(arch, T_pod, compress=compress)),
+      flush=True)
 print("seconds", time.perf_counter() - t0)
 """
 
@@ -1624,7 +1912,8 @@ def start_dryrun():
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     proc = subprocess.Popen(
         [sys.executable, "-c",
-         DRYRUN_CODE.replace("CELLS", repr(DRYRUN_CELLS))],
+         DRYRUN_CODE.replace("CELLS", repr(DRYRUN_CELLS)).replace(
+             "HIER", repr(DRYRUN_HIER))],
         stdout=out, stderr=err, text=True, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                  OMP_NUM_THREADS="1"))
@@ -1639,7 +1928,7 @@ def dryrun_phase(started):
     fails unless every cell is ok with nonzero flops, bytes and
     collectives, the mesh and chips asked for, and its kernels'
     meta-path calls (DRYRUN_KERNELS)."""
-    from repro_torch.launch.dryrun import fmt_line
+    from repro_torch.launch.dryrun import fmt_hier_line, fmt_line
     proc, out, err = started
     t0 = time.perf_counter()
     try:
@@ -1655,8 +1944,22 @@ def dryrun_phase(started):
           f"2-9; waited {time.perf_counter() - t0:.1f} s for it at the end",
           flush=True)
     recs = [json.loads(line) for line in lines if line.startswith("{")]
-    check(len(recs) == len(DRYRUN_CELLS), f"dry run: {len(recs)} records "
-          f"for {len(DRYRUN_CELLS)} cells")
+    check(len(recs) == len(DRYRUN_CELLS) + 1, f"dry run: {len(recs)} "
+          f"records for {len(DRYRUN_CELLS)} cells and the --hier step")
+    hier = recs.pop()
+    arch, T_pod, compress = DRYRUN_HIER
+    print(f"dryrun: {fmt_hier_line(hier, T_pod, compress)}", flush=True)
+    check(hier["status"] == "ok" and hier["arch"] == arch
+          and hier["mode"] == f"hier_T{T_pod}" + "_int8" * compress
+          and hier["collectives_never"]["cross_pod_wire_bytes"] == 0
+          and hier["cross_pod_bytes_per_sync"] > 0
+          and hier["amortized_wire_bytes"] == hier["wire_nosync"]
+          + hier["cross_pod_bytes_per_sync"] / T_pod,
+          f"dry run --hier {T_pod}: {hier}")
+    print(f"dryrun: {arch} --hier {T_pod}{' --compress' * compress}: wire "
+          f"without a sync {hier['wire_nosync']:.6e} B, one sync's cross-pod "
+          f"{hier['cross_pod_bytes_per_sync']:.6e} B, flops "
+          f"{hier['flops']:.4e}, bytes {hier['bytes']:.4e}", flush=True)
     for rec, (arch, shape, multi_pod) in zip(recs, DRYRUN_CELLS):
         print(f"dryrun: {fmt_line(rec)}", flush=True)
         check(rec["status"] == "ok", f"dry run {arch} x {shape}: "
@@ -1677,6 +1980,11 @@ def dryrun_phase(started):
               f"{rec['state_bytes_per_device']})", flush=True)
 
 
+# Traces with no record of the timed kernels that kernel_times takes
+# again, back to back, on top of its tries.
+EMPTY_TRACES = 50
+
+
 def kernel_times(fn, prefix: str, n: int = 10, tries: int = 5,
                  floor_ms: float = 0.0) -> dict:
     """{CUDA kernel: (launches per call, device ms per call)} of fn(),
@@ -1685,7 +1993,9 @@ def kernel_times(fn, prefix: str, n: int = 10, tries: int = 5,
     host op also carries its kernels' time. The profiler can drop a
     kernel's records (one run saw 2 of 10 launches; kernels of 0.1-1 ms
     lost 1-3 of 10 in every trace; right after a training run the first
-    traces held no record at all) or time whole launches short (one
+    2-5 traces held no record at all, and so did every trace taken a
+    second after the one before: up to EMPTY_TRACES such traces are
+    taken again at once, on top of `tries`) or time whole launches short (one
     trace put SDPA at half its CUDA-event time, under its bound): a
     trace that recorded none of these kernels, where some kernel's
     launches are not a whole number per call, or whose kernels sum to
@@ -1696,7 +2006,8 @@ def kernel_times(fn, prefix: str, n: int = 10, tries: int = 5,
     that no trace recorded fails the caller's check of its launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    empty = 0
+    while tries:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1722,6 +2033,14 @@ def kernel_times(fn, prefix: str, n: int = 10, tries: int = 5,
             return out
         print(f"  torch.profiler dropped launches or time: {out} ({total} ms "
               f"per call, floor {floor_ms} ms); tracing again", flush=True)
+        if not counts and empty < EMPTY_TRACES:
+            # A trace with no record of these kernels (seen in runs of
+            # 2-5 right after a training run, and after every trace that
+            # followed a pause of a second) does not count against
+            # `tries`; the next is taken at once.
+            empty += 1
+            continue
+        tries -= 1
     per_call = {k: max(1, round(c / n)) for k, (c, _) in counts.items()}
     print(f"  timing {sorted(counts)} by the mean over their recorded "
           f"launches {({k: c for k, (c, _) in counts.items()})}",
@@ -2323,7 +2642,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(seed: int, smi: str) -> list:
-    """Phases 2-9; returns the kernels line's rows."""
+    """Phases 2-9 and 11; returns the kernels line's rows."""
     t0 = time.perf_counter()
     kernels = dht_phase(seed)
     print(f"dht phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2343,12 +2662,21 @@ def run_phases(seed: int, smi: str) -> list:
     t0 = time.perf_counter()
     locklint_phase()
     print(f"locklint phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    kernels += train_phase(seed, smi)
-    print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    kernels += hier_phase(seed, smi)
-    print(f"hier phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    import shutil
+    keep = []
+    try:
+        t0 = time.perf_counter()
+        kernels += train_phase(seed, smi, keep)
+        print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        kernels += hier_phase(seed, smi)
+        print(f"hier phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        kernels += mesh_phase(seed, smi, keep[0] / "run")
+        print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        for work in keep:
+            shutil.rmtree(work, ignore_errors=True)
     return kernels
 
 

@@ -12,9 +12,16 @@ memory order.
 `AsyncCheckpointer` keeps serialization off the training loop: `submit`
 blocks only on the device-to-host copy, a background thread writes.
 
-Restoring onto another device layout (the reference's `sharding_tree`)
-waits for training on a mesh of cards (ROADMAP.md queue 1 item 7e; the
-per-layer placements are `parallel.sharding.layer_placements`).
+On a mesh (a state of DTensors) the format stays the same: every rank
+gathers each leaf's `full_tensor()` (a collective, so every rank saves
+the same tree in the same order), only global rank 0 writes and
+commits, and the others wait at a barrier until it has. So a checkpoint
+saved on a mesh restores on one device and the other way round.
+`load_checkpoint(sharding_tree=)` places each leaf onto its mesh from
+the checkpoint's whole array (`distribute_tensor`, every rank taking
+its own shard: no collective), as the reference's `jax.device_put`;
+`parallel.sharding.state_placements` gives such a tree for a train
+state.
 """
 from __future__ import annotations
 
@@ -24,11 +31,14 @@ import queue
 import shutil
 import tempfile
 import threading
+import zipfile
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.parallel.spmd import is_dtensor
 
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -66,13 +76,33 @@ def _treedef(tree) -> str:
     return "*"
 
 
-def _to_host(tree) -> Tuple[Dict[str, np.ndarray], str]:
-    """(key -> numpy copy, treedef): the device-to-host copy."""
+def _distributed(tree) -> bool:
+    """Whether any leaf of `tree` is a DTensor."""
+    return any(is_dtensor(leaf) for _, leaf in _leaves(tree))
+
+
+def _barrier(distributed: bool):
+    """Every rank waits for global rank 0's write (on a mesh)."""
+    if distributed:
+        torch.distributed.barrier()
+
+
+@torch.no_grad()
+def _to_host(tree, distributed: bool
+             ) -> Tuple[Optional[Dict[str, np.ndarray]], str]:
+    """(key -> numpy copy, treedef): the device-to-host copy. A DTensor
+    leaf is gathered whole on every rank; on a mesh only global rank 0
+    keeps the copies (the others get None)."""
+    keep = not distributed or torch.distributed.get_rank() == 0
     flat = {}
     for key, leaf in _leaves(tree):
-        flat[key] = (leaf.detach().to("cpu", copy=True).numpy()
-                     if isinstance(leaf, torch.Tensor) else np.array(leaf))
-    return flat, _treedef(tree)
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if keep:
+            flat[key] = (leaf.detach().to("cpu", copy=True).numpy()
+                         if isinstance(leaf, torch.Tensor)
+                         else np.array(leaf))
+    return (flat if keep else None), _treedef(tree)
 
 
 def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
@@ -102,7 +132,17 @@ def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     meta: Optional[dict] = None) -> str:
-    return _write(ckpt_dir, step, *_to_host(tree), meta)
+    """Writes `tree` as `step_<step>` under ckpt_dir; returns its path.
+    On a mesh every rank calls it, rank 0 writes, and every rank
+    returns once the checkpoint is committed."""
+    distributed = _distributed(tree)
+    flat, treedef = _to_host(tree, distributed)
+    if flat is None:
+        path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    else:
+        path = _write(ckpt_dir, step, flat, treedef, meta)
+    _barrier(distributed)
+    return path
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -113,29 +153,100 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _restore(node, data, prefix: str = ""):
-    """`node` with every leaf replaced by the checkpoint's array under
-    its key: tensors as new tensors on the leaf's device, a module's
-    parameters overwritten in place (the module is returned)."""
+def _place(t: torch.Tensor, spec) -> torch.Tensor:
+    """t (whole, on any device) as a DTensor under spec = (mesh,
+    placements): every rank takes its own shard, no collective."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh, placements = spec
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def _shape(leaf):
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
+        else np.shape(leaf)
+
+
+def _restore(node, value, shard=None, prefix: str = ""):
+    """`node` with every leaf replaced by value(key, leaf) (a tensor):
+    as a new tensor on the leaf's device, a module's parameters
+    overwritten in place (the module is returned); with `shard` (a tree
+    of (mesh, placements) in node's structure, a module's node a dict by
+    parameter name) every leaf is a DTensor placed by it instead, a
+    module's parameters replaced by DTensor parameters."""
+    join = (lambda k: f"{prefix}/{k}") if prefix else str
     if isinstance(node, nn.Module):
         with torch.no_grad():
-            for key, p in _leaves(node, prefix):
-                p.copy_(_array(data, key, p.shape))
+            for name, p in list(node.named_parameters()):
+                new = value(join(name.replace(".", "/")), p)
+                if shard is None:
+                    p.copy_(new)
+                    continue
+                owner, _, leaf = name.rpartition(".")
+                mod = node.get_submodule(owner) if owner else node
+                setattr(mod, leaf, nn.Parameter(
+                    _place(new, shard[name]), requires_grad=p.requires_grad))
         return node
-    join = (lambda k: f"{prefix}/{k}") if prefix else str
     if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(_restore(getattr(node, f), data, join(f))
-                            for f in node._fields))
+        return type(node)(*(_restore(
+            getattr(node, f), value,
+            None if shard is None else getattr(shard, f), join(f))
+            for f in node._fields))
     if isinstance(node, dict):
-        return {k: _restore(v, data, join(str(k).replace(".", "/")))
+        return {k: _restore(v, value, None if shard is None else shard[k],
+                            join(str(k).replace(".", "/")))
                 for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_restore(v, data, join(str(i)))
+        return type(node)(_restore(v, value,
+                                   None if shard is None else shard[i],
+                                   join(str(i)))
                           for i, v in enumerate(node))
-    arr = _array(data, prefix, np.shape(node))
+    new = value(prefix, node)
+    if shard is not None:
+        return _place(new, shard)
     if isinstance(node, torch.Tensor):
-        return arr.to(node.device)
-    return arr.numpy()
+        return new.to(node.device)
+    return new.numpy()
+
+
+class _Arrays:
+    """The arrays of an `arrays.npz` by key, each read in one sequential
+    read from its offset in the file (np.savez stores members
+    uncompressed; `np.load`'s zip stream reads in small chunks and
+    checksums them, ~2.5x slower); another member goes through
+    `np.load`."""
+
+    def __init__(self, path: str):
+        self._npz = np.load(path)
+        self._file = open(path, "rb")
+        self._where = {}
+        for info in self._npz.zip.infolist():
+            if info.compress_type == zipfile.ZIP_STORED:
+                self._where[info.filename[:-4]] = info.header_offset
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        if key not in self._where:
+            return self._npz[key]
+        f = self._file
+        f.seek(self._where[key])
+        head = f.read(30)                       # the local file header
+        f.seek(int.from_bytes(head[26:28], "little")
+               + int.from_bytes(head[28:30], "little"), os.SEEK_CUR)
+        major, _ = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if major == 1
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        if dtype.hasobject:
+            return self._npz[key]
+        arr = np.fromfile(f, dtype=dtype, count=int(np.prod(shape)))
+        return (arr.reshape(shape[::-1]).T if fortran
+                else arr.reshape(shape))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._file.close()
+        self._npz.close()
 
 
 def _array(data, key: str, shape) -> torch.Tensor:
@@ -149,16 +260,29 @@ def _array(data, key: str, shape) -> torch.Tensor:
 def load_checkpoint(ckpt_dir: str, step: int, like: Any,
                     sharding_tree: Any = None) -> Tuple[Any, dict]:
     """Restore into the structure of `like` (its tensors' devices; a
-    module in it is restored in place). Returns (tree, manifest)."""
-    if sharding_tree is not None:
-        raise NotImplementedError(
-            "load_checkpoint: restoring onto a sharded layout needs "
-            "training on a mesh of cards (ROADMAP.md queue 1 item 7e)")
+    module in it is restored in place). Returns (tree, manifest).
+
+    With `sharding_tree` (a (DeviceMesh, placements) pair per leaf in
+    like's structure, e.g. `parallel.sharding.state_placements(like,
+    mesh)`) every leaf is restored as a DTensor from the checkpoint's
+    whole array (the elastic restore onto any mesh); `like` only gives
+    the structure and shapes (meta tensors will do)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    with np.load(os.path.join(path, "arrays.npz")) as data:
-        return _restore(like, data), manifest
+    with _Arrays(os.path.join(path, "arrays.npz")) as data:
+        return _restore(like, lambda key, leaf: _array(data, key,
+                                                       _shape(leaf)),
+                        sharding_tree), manifest
+
+
+def place_state(state: Any, sharding_tree: Any) -> Any:
+    """`state` with every leaf distributed onto its mesh by
+    `sharding_tree` (as `load_checkpoint` places a restored one): each
+    rank keeps its own shard of its whole copy; a module's parameters
+    are replaced in place."""
+    return _restore(state, lambda key, leaf: torch.as_tensor(leaf).detach(),
+                    sharding_tree)
 
 
 class AsyncCheckpointer:
@@ -169,6 +293,7 @@ class AsyncCheckpointer:
         self._q: queue.Queue = queue.Queue(maxsize=1)
         self._err: Optional[BaseException] = None
         self._done = threading.Event()
+        self._distributed = False
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -185,13 +310,21 @@ class AsyncCheckpointer:
                 self._err = e
 
     def submit(self, step: int, tree: Any, meta: Optional[dict] = None):
+        """Copies `tree` to the host (the only sync point; on a mesh a
+        gather on every rank) and queues its write (rank 0's only)."""
         if self._err:
             raise self._err
-        flat, treedef = _to_host(tree)         # the only sync point
-        self._q.put((int(step), flat, treedef, meta))
+        distributed = _distributed(tree)
+        self._distributed |= distributed
+        flat, treedef = _to_host(tree, distributed)
+        if flat is not None:
+            self._q.put((int(step), flat, treedef, meta))
 
     def close(self):
+        """Waits for the writes; on a mesh every rank returns once rank
+        0's are committed."""
         self._q.put(None)
         self._done.wait(timeout=60)
+        _barrier(self._distributed)
         if self._err:
             raise self._err

@@ -5,9 +5,13 @@
         [--shape S] [--mesh single|multi|both] [--remat none|dots|full]
         [--tag T] [--decode-seq2d] [--fsdp-axes data]
         [--grad-sync-dtype f32|bf16]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --hier T_POD
+        [--compress] [--arch A] [--remat ...] [--tag T]
 
 writes one record per cell to results/dryrun/<arch>__<shape>__<mesh>.json
-and prints a line each. Two stages, as in the reference:
+and prints a line each; `--hier` writes one record of the pod-sync step
+(`lower_hier`, below) to <arch>__hier_T<T>[_int8][__tag].json. Two
+stages, as in the reference:
 
 - `plan_cell` is the record's metadata, with no process group and no
   tensor beyond the meta model: status and skip reason, FSDP, chips,
@@ -42,8 +46,16 @@ What a lowering counts, all per rank on its LOCAL shards (a
 
 The reference compiles each cell with XLA and also records `compile_s`
 and XLA's `memory_analysis`; the port compiles nothing, so neither is
-recorded. `--hier` (the reference's `lower_hier`) is not ported yet
-(ROADMAP.md queue 1 item 7d-2).
+recorded.
+
+`lower_hier` is the pod-local hierarchical step
+(`parallel.hierarchical`, the state placed by
+`parallel.sharding.state_placements`: each rank runs its own pod's step
+over the (data, model) submesh) on train_4k x pod2x16x16, lowered
+twice, with the sync never and always, under the same counting; the
+difference of the two wires is one sync's cross-pod bytes, amortized
+over T_pod. Each collectives record also gives `cross_pod_wire_bytes`,
+the wire of the collectives whose group spans pods.
 
 Layout departure: OLMo-1B, StarCoder2-7B and HuBERT-XLarge's rules shard
 the stacked layer axis of their dense FFN over 'model', which one tensor
@@ -264,6 +276,7 @@ def _counter_mode():
             self.flops = 0
             self.bytes = 0
             self.events = []
+            self.groups = []
             self.kernels: Dict[str, Dict[str, int]] = {}
 
         def kernel(self, name, flops, nbytes):
@@ -289,6 +302,8 @@ def _counter_mode():
                     self.events.append(
                         (coll, sum(t.numel() * t.element_size()
                                    for t in _tensors(out))))
+                    self.groups.append([a for a in args
+                                        if isinstance(a, str)][-1])
                 return out
             fn = flop_registry.get(func._overloadpacket)
             if fn is not None:
@@ -525,6 +540,122 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, *,
                             grad_sync_dtype=grad_sync_dtype, header=header)
 
 
+def _spans_pods(mesh, pod: int):
+    """group name -> whether that process group's ranks lie in more
+    than one pod of `mesh` (pod: the mesh dim of 'pod')."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    pod_of = {int(r): i for i, sub in enumerate(mesh.mesh.movedim(pod, 0))
+              for r in sub.flatten()}
+
+    def spans(name) -> bool:
+        ranks = dist.get_process_group_ranks(_resolve_process_group(name))
+        return len({pod_of[r] for r in ranks}) > 1
+    return spans
+
+
+def lower_hier_record(cfg, shape, mesh, T_pod: int, *, compress=False,
+                      remat: str = "dots", header=None) -> Dict[str, Any]:
+    """The hierarchical step of `cfg` at `shape` on `mesh` (a DeviceMesh
+    with 'pod' of a fake world), lowered with sync_mode "never" and
+    "always" on the meta device; the record after `header`, with the
+    reference's keys (`flops` / `bytes` for its `hlo_flops` /
+    `hlo_bytes`, as `lower_record` names them)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint import place_state
+    from repro_torch.data.synthetic import input_specs
+    from repro_torch.kernels import meta
+    from repro_torch.parallel.hierarchical import (build_hier_train_step,
+                                                   init_hier_state)
+
+    names = tuple(mesh.mesh_dim_names)
+    n_pods = mesh.size(names.index("pod"))
+    departures: list = []
+    state = init_hier_state(cfg, None, n_pods, compress=compress,
+                            device="meta")
+    state = place_state(state, shd.state_placements(
+        state, mesh, cfg, departures=departures))
+    batch = {}
+    for k, v in input_specs(cfg, shape, torch.bfloat16).items():
+        v = v.reshape((n_pods, v.shape[0] // n_pods) + tuple(v.shape[1:]))
+        spec = ("pod", "data") + (None,) * (v.dim() - 2)
+        batch[k] = _distribute(v, mesh, spec, k)
+    spans = _spans_pods(mesh, names.index("pod"))
+    rec = dict(header or {})
+    wires, flops, byts = {}, {}, {}
+    for sync_mode in ("never", "always"):
+        step_fn = build_hier_train_step(cfg, n_pods, T_pod,
+                                        compress=compress, remat=remat,
+                                        sync_mode=sync_mode)
+        counter, cdm = _counter_mode(), CommDebugMode()
+        with _alltoall_as_alltoall(), implicit_replication():
+            with cdm, counter, meta.recording(counter.kernel):
+                step_fn(state, batch)
+        coll = collective_stats(counter.events)
+        if _comm_counts(cdm) != coll["counts"]:
+            raise RuntimeError(f"CommDebugMode counted {_comm_counts(cdm)}, "
+                               f"the dispatch mode {coll['counts']}")
+        coll["cross_pod_wire_bytes"] = collective_stats(
+            [e for e, g in zip(counter.events, counter.groups)
+             if spans(g)])["wire_bytes"]
+        wires[sync_mode] = coll["wire_bytes"]
+        flops[sync_mode] = float(counter.flops)
+        byts[sync_mode] = float(counter.bytes)
+        rec[f"collectives_{sync_mode}"] = coll
+    cross_pod = max(wires["always"] - wires["never"], 0.0)
+    amortized = wires["never"] + cross_pod / T_pod
+    rec.update(
+        wire_nosync=wires["never"], wire_sync=wires["always"],
+        cross_pod_bytes_per_sync=cross_pod,
+        amortized_wire_bytes=amortized,
+        flops=flops["never"], bytes=byts["never"], bytes_basis="unfused",
+        roofline={
+            "compute_s": flops["never"] / PEAK_FLOPS,
+            "memory_s": byts["never"] / HBM_BW,
+            "collective_s": amortized / LINK_BW,
+            "cross_pod_s_per_sync": cross_pod / LINK_BW,
+        })
+    if departures:
+        rec["layout_departures"] = departures
+    return rec
+
+
+def lower_hier(arch: str, T_pod: int, *, compress: bool = False,
+               remat: str = "dots", extra_tag: str = "") -> Dict[str, Any]:
+    """The reference's `lower_hier`: the pod-local hierarchical train
+    step of `arch` at train_4k on the pod2x16x16 mesh of a fake
+    512-rank world, its sync and no-sync collectives and the amortized
+    wire: wire(T) = wire_nosync + (wire_sync - wire_nosync) / T."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    header = {"arch": arch, "shape": "train_4k", "mesh": MESHES[True][0],
+              "mode": f"hier_T{T_pod}" + ("_int8" if compress else ""),
+              "tag": extra_tag, "status": "ok",
+              "chips": int(np.prod(list(MESHES[True][1].values())))}
+    with fake_world(header["chips"]):
+        mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+        return lower_hier_record(get_config(arch), SHAPES["train_4k"], mesh,
+                                 T_pod, compress=compress, remat=remat,
+                                 header=header)
+
+
+def hier_name(rec) -> str:
+    """The record's file name, the reference's."""
+    tag = f"__{rec['tag']}" if rec.get("tag") else ""
+    return f"{rec['arch']}__{rec['mode']}{tag}.json"
+
+
+def fmt_hier_line(rec, T_pod: int, compress: bool) -> str:
+    """The reference's printed line of a `lower_hier` record."""
+    r = rec["roofline"]
+    return (f"{rec['arch']:18s} hier T={T_pod} int8={compress} "
+            f"amortized_wire={rec['amortized_wire_bytes'] / 1e9:.3f}GB "
+            f"cross_pod/sync={rec['cross_pod_bytes_per_sync'] / 1e9:.3f}GB "
+            f"coll={r['collective_s']:.3e}s")
+
+
 # ------------------------------------------------------------------ output
 def save_rec(rec, out_dir=RESULTS_DIR):
     os.makedirs(out_dir, exist_ok=True)
@@ -565,16 +696,20 @@ def main(argv=None):
     ap.add_argument("--grad-sync-dtype", default="f32",
                     choices=["f32", "bf16"])
     ap.add_argument("--hier", type=int, default=0, metavar="T_POD",
-                    help="lower the hierarchical pod-sync step instead "
-                         "(not ported yet)")
+                    help="lower the hierarchical pod-sync step instead")
     ap.add_argument("--compress", action="store_true",
                     help="with --hier: int8 delta exchange")
     args = ap.parse_args(argv)
 
     if args.hier:
-        raise ValueError("--hier (lower_hier: the pod-sync step's never / "
-                         "always sync counts over 'pod') is not ported "
-                         "yet: ROADMAP.md queue 1 item 7d-2")
+        rec = lower_hier(args.arch or "qwen2_0p5b", args.hier,
+                         compress=args.compress, remat=args.remat,
+                         extra_tag=args.tag)
+        os.makedirs(RESULTS_DIR, exist_ok=True)
+        with open(os.path.join(RESULTS_DIR, hier_name(rec)), "w") as f:
+            json.dump(rec, f, indent=1)
+        print(fmt_hier_line(rec, args.hier, args.compress), flush=True)
+        return rec
     archs = [args.arch] if args.arch else ARCH_IDS
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = {"single": [False], "multi": [True],

@@ -11,6 +11,13 @@ decoupled weight decay on the parameter's float32 value. Unlike the
 reference's pure functions, `adamw_update` advances m and v in place and
 `apply_updates` adds to the parameters in place (each op rounds as the
 out-of-place one does), so a full-width model holds one copy of each.
+
+On a mesh the leaves are DTensors: each gradient is first brought to
+its parameter's placements (a Partial one all-reduced, once), the
+global norm is taken on the DTensors and made a plain (replicated)
+tensor, and the update runs elementwise on each rank's local
+shards (the updates are local tensors; the new step keeps the old one's
+placements).
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import Dict, NamedTuple
 
 import torch
 from torch import nn
+
+from repro_torch.parallel import spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +65,10 @@ def adamw_init(params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32. DTensor
+    leaves give a DTensor: each leaf's sum is Partial over the mesh dims
+    that shard it and replicated elsewhere, so a replicated dim counts
+    once."""
     leaves = named_leaves(tree).values()
     return torch.sqrt(torch.stack([torch.sum(torch.square(g.float()))
                                    for g in leaves]).sum())
@@ -67,10 +80,12 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     """Returns (updates, new_state, gnorm); updates are to be ADDED to
     params. `state.m` and `state.v` are advanced in place and are the
     new state's."""
-    gnorm = global_norm(grads)
+    grads = {k: spmd.placed_like(grads[k], p)
+             for k, p in named_leaves(params).items()}
+    gnorm = spmd.full(global_norm(grads))
     clip = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
                        max=1.0)
-    step = state.step + 1
+    step = spmd.to_local(state.step) + 1
     t = step.float()
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
@@ -78,21 +93,23 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
                                   device=gnorm.device)
     updates = {}
     for k, p in named_leaves(params).items():
-        g = grads[k].float() * clip
-        m, v = state.m[k], state.v[k]
+        g = spmd.to_local(grads[k]).float() * clip
+        m, v = spmd.to_local(state.m[k]), spmd.to_local(state.v[k])
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
         mh = m / bc1
         vh = v / bc2
         u = -lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                   + cfg.weight_decay * p.float())
+                   + cfg.weight_decay * spmd.to_local(p).float())
         updates[k] = u.to(p.dtype)
+    step = spmd.like(step, state.step)
     return updates, AdamWState(step=step, m=state.m, v=state.v), gnorm
 
 
 @torch.no_grad()
 def apply_updates(params, updates):
-    """Adds each update to its parameter in place; returns params."""
+    """Adds each update to its parameter in place (a DTensor's local
+    shard); returns params."""
     for k, p in named_leaves(params).items():
-        p.add_(updates[k].to(p.dtype))
+        spmd.to_local(p).add_(spmd.to_local(updates[k]).to(p.dtype))
     return params

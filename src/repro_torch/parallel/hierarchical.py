@@ -17,8 +17,8 @@ anchor and err are scalar zeros per leaf.
 
 One card runs the pods one after another. `torch.func.vmap` cannot pass
 through the attention and SSD kernels' autograd Functions, so pod i's
-loss runs through `torch.func.functional_call` on leaves that are
-detached views of row i; its AdamW (`optim.adamw_update` /
+loss and its backward run on a meta-device model reparametrized by
+leaves that are detached views of row i; its AdamW (`optim.adamw_update` /
 `apply_updates`, in place) writes through to the podded storage, and the
 sync runs in place too, so a full-width model holds one copy of each
 tensor. Each pod clips by its own global norm; the learning rate is
@@ -28,16 +28,31 @@ Optional int8 compression: pods exchange their parameter delta since the
 last sync, quantized to int8 with one scale per tensor shared by every
 pod, with error feedback. A wire would carry 1 byte per element (plus a
 f32 scale per tensor) instead of 4; on one card nothing moves.
+
+On a mesh with a 'pod' axis (the state placed by
+`parallel.sharding.state_placements`, the batch [n_pods, B / n_pods,
+...] sharded over 'pod' and 'data'), each rank runs only its own pod's
+step, on its local 'pod' shard seen as a DTensor over the rest of the
+mesh (`_pod_view`: the counterpart of the reference's vmap over pods
+under pjit), and the sync runs over 'pod' only: the exact one an
+all-reduce of the f32 parameters, the int8 one a max all-reduce of the
+scale (over every mesh dim that shards the tensor) and, for two pods,
+the int8 payload swapped with the other pod (a permute: one byte per
+element). The metrics' means over pods are left Partial over 'pod'
+(reduced when read), so a step without a sync moves nothing across
+pods.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from repro_torch.models import lm
 from repro_torch.optim import (AdamWConfig, AdamWState, adamw_update,
                                apply_updates)
+from repro_torch.parallel import spmd
 from repro_torch.train.step import _Loss
 
 Tree = Dict[str, torch.Tensor]
@@ -122,6 +137,60 @@ def _compressed_sync(params_p: Tree, anchor_p: Tree, err: Tree,
     return params_p, anchor_p, err
 
 
+def _pod_view(t, sub, pod: int):
+    """DTensor t [n_pods, ...] (Shard(0) over mesh dim `pod`) as this
+    rank's pod row: a DTensor over `sub` (the mesh without 'pod') of t's
+    shape without the pod axis, on t's local storage."""
+    from torch.distributed.tensor import Shard
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p
+               for i, p in enumerate(t.placements) if i != pod)
+    return spmd.wrap(t.to_local()[0], sub, pl, tuple(t.shape[1:]))
+
+
+@torch.no_grad()
+def _mesh_mean_sync(params_p: Tree, anchor: Tree, err: Tree, n_pods: int,
+                    group):
+    """`_mean_sync` on 'pod'-sharded DTensors: each local shard becomes
+    the pods' mean by one all-reduce over `group` (mesh, pod dim)."""
+    import torch.distributed._functional_collectives as funcol
+    for p in params_p.values():
+        x = p.to_local()
+        x.copy_(funcol.all_reduce(x, "sum", group) / n_pods)
+    return params_p, anchor, err
+
+
+@torch.no_grad()
+def _mesh_compressed_sync(params_p: Tree, anchor_p: Tree, err: Tree,
+                          n_pods: int, group):
+    """`_compressed_sync` on 'pod'-sharded DTensors, per rank on its
+    local shards: the scale's max all-reduced over every mesh dim that
+    shards the tensor (so it is the whole tensor's), the int8 payload
+    swapped with the other pod (two pods) or summed in f32 over 'pod'."""
+    import torch.distributed._functional_collectives as funcol
+    mesh, _ = group
+    for k, p in params_p.items():
+        x, a, e = p.to_local(), anchor_p[k].to_local(), err[k].to_local()
+        acc = x.float() - a.float()
+        acc.add_(e)                                  # delta + e
+        m = acc.abs().max()
+        for dim in spmd.mesh_dims(p, lambda pl: pl.is_shard()):
+            m = funcol.all_reduce(m, "max", (mesh, dim))
+        s = torch.clamp_min(m, 1e-12) / 127.0
+        q = torch.clamp(torch.round(acc / s), -127, 127).to(torch.int8)
+        e.copy_(acc.sub_(q.float() * s))             # acc - q s
+        del acc
+        if n_pods == 2:
+            # permute_tensor splits its input's dim 0 by numel: flat.
+            other = funcol.permute_tensor(q.reshape(-1), [1, 0], group)
+            qsum = q.float() + other.reshape(q.shape).float()
+        else:
+            qsum = funcol.all_reduce(q.float(), "sum", group)
+        mean_delta = qsum * (s / n_pods)
+        a.copy_((a.float() + mean_delta).to(a.dtype))
+        x.copy_(a.to(x.dtype))
+    return params_p, anchor_p, err
+
+
 def build_hier_train_step(cfg, n_pods: int, T_pod: int,
                           opt_cfg: AdamWConfig = AdamWConfig(), *,
                           compress: bool = False, remat: str = "dots",
@@ -129,56 +198,100 @@ def build_hier_train_step(cfg, n_pods: int, T_pod: int,
     """Returns hier_train_step(state, batch_podded) -> (state, metrics).
 
     batch_podded leaves are [n_pods, B / n_pods, ...] on the state's
-    device. The sync fires after the update when (step + 1) % T_pod == 0
-    (sync_mode "cond"), or always, or never. Metrics: "loss" and
-    "grad_norm" (means over pods, f32) and "synced" (int32). The
-    state's tensors are updated in place and the returned state holds
-    them."""
+    device, or DTensors on its mesh (see the module's docstring). The
+    sync fires after the update when (step + 1) % T_pod == 0 (sync_mode
+    "cond"), or always, or never. Metrics: "loss" and "grad_norm"
+    (means over pods, f32; on a mesh 0-dim DTensors, Partial over 'pod')
+    and "synced" (int32). The state's tensors are updated in place and
+    the returned state holds them."""
     if sync_mode not in SYNC_MODES:
         raise ValueError(f"sync_mode must be one of {SYNC_MODES}; got "
                          f"{sync_mode!r}")
     loss_mod = _Loss(lm.init_params(cfg, device="meta"), remat)
 
-    def pod_step(state: HierState, batch_p, i: int):
-        """Pod i's loss, gradients and AdamW update, written into row i.
-        Returns (loss, gnorm, the pod's new AdamW step)."""
-        rows = {k: p[i] for k, p in state.params.items()}
+    def pod_step(rows: Tree, opt_i: AdamWState, batch):
+        """One pod's loss, gradients and AdamW update, written into its
+        rows. Returns (loss, gnorm, the pod's new AdamW step)."""
         leaves = {k: r.detach().requires_grad_() for k, r in rows.items()}
-        loss, _ = torch.func.functional_call(
-            loss_mod, {f"model.{k}": t for k, t in leaves.items()},
-            ({k: x[i] for k, x in batch_p.items()},))
-        loss.backward()
+        # The leaves stay in the model through the backward too, where
+        # remat recomputes the forward.
+        with _reparametrize_module(loss_mod, {f"model.{k}": t for k, t
+                                              in leaves.items()}):
+            loss, _ = loss_mod(batch)
+            loss.backward()
         # A parameter the loss does not read has a zero gradient.
         grads = {k: torch.zeros_like(t) if t.grad is None else t.grad
                  for k, t in leaves.items()}
         del leaves
-        opt_i = AdamWState(step=state.opt.step[i],
-                           m={k: m[i] for k, m in state.opt.m.items()},
-                           v={k: v[i] for k, v in state.opt.v.items()})
         updates, new_opt, gnorm = adamw_update(grads, opt_i, rows, opt_cfg,
                                                lr_scale=1.0)
         del grads
         apply_updates(rows, updates)
-        return loss.detach().float(), gnorm, new_opt.step
+        return spmd.full(loss.detach().float()), gnorm, new_opt.step
+
+    def do_sync(state: HierState) -> bool:
+        if sync_mode == "cond":
+            return (int(spmd.to_local(state.step)) + 1) % T_pod == 0
+        return sync_mode == "always"
+
+    def metrics_of(loss, gnorm, synced: bool, dev):
+        return {"loss": loss, "grad_norm": gnorm,
+                "synced": torch.tensor(int(synced), dtype=torch.int32,
+                                       device=dev)}
 
     def step_fn(state: HierState, batch_p):
-        losses, gnorms, steps = zip(*(pod_step(state, batch_p, i)
-                                      for i in range(n_pods)))
+        if spmd.is_dtensor(state.step):
+            return mesh_step(state, batch_p)
+        losses, gnorms, steps = zip(*(pod_step(
+            {k: p[i] for k, p in state.params.items()},
+            AdamWState(step=state.opt.step[i],
+                       m={k: m[i] for k, m in state.opt.m.items()},
+                       v={k: v[i] for k, v in state.opt.v.items()}),
+            {k: x[i] for k, x in batch_p.items()}) for i in range(n_pods)))
         opt = AdamWState(step=torch.stack(steps), m=state.opt.m,
                          v=state.opt.v)
-        if sync_mode == "cond":
-            do_sync = (int(state.step) + 1) % T_pod == 0
-        else:
-            do_sync = sync_mode == "always"
-        if do_sync:
+        synced = do_sync(state)
+        if synced:
             sync = _compressed_sync if compress else _mean_sync
             sync(state.params, state.anchor, state.err, n_pods)
-        dev = state.step.device
-        metrics = {"loss": torch.mean(torch.stack(losses)),
-                   "grad_norm": torch.mean(torch.stack(gnorms)),
-                   "synced": torch.tensor(int(do_sync), dtype=torch.int32,
-                                          device=dev)}
+        metrics = metrics_of(torch.mean(torch.stack(losses)),
+                             torch.mean(torch.stack(gnorms)), synced,
+                             state.step.device)
         return HierState(params=state.params, opt=opt, anchor=state.anchor,
                          err=state.err, step=state.step + 1), metrics
+
+    def mesh_step(state: HierState, batch_p):
+        """This rank's pod's step on its 'pod' shard, then the sync over
+        'pod'."""
+        from torch.distributed.tensor import Partial, Replicate
+        mesh = state.step.device_mesh
+        names = mesh.mesh_dim_names
+        pod = names.index("pod")
+        sub = mesh[tuple(n for n in names if n != "pod")]
+
+        def view(tree):
+            return {k: _pod_view(t, sub, pod) for k, t in tree.items()}
+
+        rows = view(state.params)
+        with spmd.mesh_context(next(iter(rows.values()))):
+            loss, gnorm, new_step = pod_step(
+                rows, AdamWState(step=state.opt.step.to_local()[0],
+                                 m=view(state.opt.m), v=view(state.opt.v)),
+                view(batch_p))
+        del rows
+        opt = AdamWState(step=spmd.like(new_step.reshape(1), state.opt.step),
+                         m=state.opt.m, v=state.opt.v)
+        synced = do_sync(state)
+        if synced:
+            sync = _mesh_compressed_sync if compress else _mesh_mean_sync
+            sync(state.params, state.anchor, state.err, n_pods, (mesh, pod))
+        mean = tuple(Partial() if i == pod else Replicate()
+                     for i in range(mesh.ndim))
+        metrics = metrics_of(
+            *(spmd.wrap(x / n_pods, mesh, mean, ()) for x in (loss, gnorm)),
+            synced, loss.device)
+        step = spmd.like(spmd.to_local(state.step) + 1, state.step)
+        return HierState(params=state.params, opt=opt, anchor=state.anchor,
+                         err=state.err, step=step), metrics
 
     return step_fn

@@ -318,8 +318,8 @@ def layer_specs(model, mesh, *, fsdp: bool = False, fsdp_axes=None,
                 departures=None) -> Dict[str, Spec]:
     """Parameter name of the port's `LM` -> its spec under the
     reference's rules, the stacked (layer) axes dropped. Where a rule
-    shards a stacked axis (the port keeps one tensor per layer and
-    cannot hold that split), raises a ValueError naming the leaf, or,
+    shards a stacked axis over more than one rank (the port keeps one
+    tensor per layer and cannot hold that split), raises a ValueError naming the leaf, or,
     given a list as `departures`, appends the leaf's reference path to
     it (once) and keeps the spec's other entries: the parameter is
     replicated over that axis instead."""
@@ -335,7 +335,8 @@ def layer_specs(model, mesh, *, fsdp: bool = False, fsdp_axes=None,
         spec = specs
         for k in keys:
             spec = spec[k]
-        if any(e is not None for e in spec[:depth]):
+        # A stacked axis split over mesh axes of size 1 is not split.
+        if any(axis_size(mesh, e) > 1 for e in spec[:depth]):
             leaf = "/".join(keys)
             if departures is not None:
                 if leaf not in departures:
@@ -360,3 +361,68 @@ def layer_placements(model, mesh, *, fsdp: bool = False, fsdp_axes=None,
     return {name: _placements(spec, mesh, name) for name, spec in
             layer_specs(model, mesh, fsdp=fsdp, fsdp_axes=fsdp_axes,
                         departures=departures).items()}
+
+
+def _podded(placements, pod: int):
+    """Placements of a leaf with a leading pod axis: Shard(0) over mesh
+    dim `pod`, every other mesh dim's shard moved one tensor dim on."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(0) if i == pod else
+                 Shard(p.dim + 1) if p.is_shard() else p
+                 for i, p in enumerate(placements))
+
+
+def state_placements(state, mesh, cfg=None, *, departures=None):
+    """(mesh, placements) for every leaf of a train state, in the state's
+    structure: the tree `checkpoint.load_checkpoint(sharding_tree=)` and
+    `checkpoint.place_state` read.
+
+    - A `train.step.TrainState`: the parameters by `layer_placements`
+      (tensor-parallel rules, no FSDP), AdamW's m and v as their
+      parameters, `step` and `opt.step` replicated.
+    - A `parallel.hierarchical.HierState` (its params a dict: pass the
+      model's `cfg`) on a mesh with a 'pod' axis, as the reference's
+      `lower_hier` lays it out: Shard(0) over 'pod' before every
+      parameter's and m / v's placements, `opt.step` sharded over 'pod';
+      the anchor and the error feedback like the parameters with
+      `compress` (podded tensors), replicated scalars without.
+
+    Raises where `layer_placements` does (a rule that shards the stacked
+    layer axis: given a list as `departures`, the leaf is listed there
+    and replicated over that axis instead) and for a HierState on a
+    mesh without 'pod'."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import lm
+    rep = (Replicate(),) * len(_names(mesh))
+    if not hasattr(state, "anchor"):
+        pl = layer_placements(state.params, mesh, departures=departures)
+        tree = {k: (mesh, p) for k, p in pl.items()}
+        return type(state)(
+            params=tree,
+            opt=type(state.opt)(step=(mesh, rep), m=dict(tree),
+                                v=dict(tree)),
+            step=(mesh, rep))
+    if "pod" not in _names(mesh):
+        raise ValueError(f"state_placements: a HierState needs a mesh with "
+                         f"a 'pod' axis; this one has {_names(mesh)}")
+    if cfg is None:
+        raise ValueError("state_placements: a HierState needs the model's "
+                         "cfg (its params are a dict)")
+    pod = _names(mesh).index("pod")
+    # The reference passes fsdp_axes=("data",) with fsdp off: the
+    # tensor-parallel rules only.
+    pl = layer_placements(lm.init_params(cfg, device="meta"), mesh,
+                          departures=departures)
+    tree = {k: (mesh, _podded(p, pod)) for k, p in pl.items()}
+
+    def extra(leaves):
+        return {k: tree[k] if t.dim() else (mesh, rep)
+                for k, t in leaves.items()}
+
+    steps = tuple(Shard(0) if i == pod else Replicate()
+                  for i in range(len(rep)))
+    return type(state)(
+        params=tree,
+        opt=type(state.opt)(step=(mesh, steps), m=dict(tree), v=dict(tree)),
+        anchor=extra(state.anchor), err=extra(state.err), step=(mesh, rep))

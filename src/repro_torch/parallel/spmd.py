@@ -31,10 +31,16 @@ counters see them):
   shards (launching on a card, its plain version on the CPU, its meta
   path on the meta device).
 
-Only the meta-device dry run (`launch/dryrun.py`) drives these so far.
+The meta-device dry run (`launch/dryrun.py`) drives these on a fake
+world; a state placed on a mesh of real ranks (`Trainer(mesh=)`, the
+pod-sharded `parallel.hierarchical` step) drives them with real
+collectives (gloo on the CPU, NCCL on cards). The helpers below them
+(`to_local`, `like`, `placed_like`, `full`, `mesh_context`) let the
+optimizer and the train steps take the same code on and off a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 
@@ -46,6 +52,53 @@ def is_dtensor(t) -> bool:
     nothing has)."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(t, mod.DTensor)
+
+
+def to_local(t):
+    """DTensor t's local shard (a view of its storage), a plain tensor
+    as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def like(local_t, ref):
+    """`local_t` as a DTensor with `ref`'s mesh and placements where ref
+    is a DTensor (local_t its rank's shard), else as it is."""
+    if not is_dtensor(ref):
+        return local_t
+    return wrap(local_t, ref.device_mesh, ref.placements, tuple(ref.shape))
+
+
+def placed_like(g, p):
+    """Gradient g under its parameter p's placements (a Partial one
+    reduced once); a plain g as it is."""
+    if not is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def full(t):
+    """DTensor t as a whole plain tensor (a gather where it is sharded,
+    a reduction where Partial), a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+@contextlib.contextmanager
+def mesh_context(t):
+    """Where t is a DTensor, runs the block as a step on its mesh does:
+    plain tensors taken as replicated (`implicit_replication`) and the
+    model's logical axes mapped to the mesh's (`constrain`'s multi-pod
+    rules on a mesh with 'pod', else the single-pod ones); else
+    nothing."""
+    if not is_dtensor(t):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel import constrain as con
+    rules = (con.rules_multi_pod() if "pod" in t.device_mesh.mesh_dim_names
+             else con.rules_single_pod())
+    with implicit_replication(), con.logical_axis_rules(rules):
+        yield
 
 
 def mesh_dims(t, pred):

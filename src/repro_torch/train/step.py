@@ -6,9 +6,12 @@ autograd (through the attention and SSD kernels' autograd Functions on
 the card), the warmup-cosine learning-rate scale, AdamW. The state's
 parameters, m and v are updated in place and the returned state holds
 them; each parameter's `.grad` keeps the step's gradient until the next
-step. Single device: pod-local replicas with a periodic sync are
-`parallel.hierarchical`; data-parallel gradient sync over several cards
-waits for training on a mesh (ROADMAP.md queue 1 item 7e).
+step. A state placed on a mesh (DTensors: `parallel.sharding.
+state_placements`, `checkpoint.place_state`) takes the same step on
+every rank: the model's per-rank plans (`parallel.spmd`) under the
+logical axis rules of its mesh, gradients reduced to their parameters'
+placements before AdamW, the metrics plain (replicated) tensors.
+Pod-local replicas with a periodic sync are `parallel.hierarchical`.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.models import lm
 from repro_torch.optim import (AdamWConfig, AdamWState, adamw_init,
                                adamw_update, apply_updates,
                                linear_warmup_cosine)
+from repro_torch.parallel import spmd
 
 
 class TrainState(NamedTuple):
@@ -80,6 +84,10 @@ def build_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig(), *,
                          f"{grad_sync_dtype!r}")
 
     def train_step(state: TrainState, batch):
+        with spmd.mesh_context(next(state.params.parameters())):
+            return step(state, batch)
+
+    def step(state: TrainState, batch):
         params = state.params
         for p in params.parameters():
             p.grad = None
@@ -95,18 +103,19 @@ def build_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig(), *,
         # table) has a zero gradient, as in the reference.
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.named_parameters()}
-        lr_scale = linear_warmup_cosine(state.step, warmup_steps,
-                                        total_steps)
+        lr_scale = linear_warmup_cosine(spmd.to_local(state.step),
+                                        warmup_steps, total_steps)
         updates, opt, gnorm = adamw_update(grads, state.opt, params,
                                            opt_cfg, lr_scale=lr_scale)
         apply_updates(params, updates)
         out_metrics = {
-            "loss": metrics["loss"].detach().float(),
-            "aux": metrics["aux"].detach().float(),
+            "loss": spmd.full(metrics["loss"].detach().float()),
+            "aux": spmd.full(metrics["aux"].detach().float()),
             "grad_norm": gnorm,
             "lr_scale": lr_scale,
         }
-        return TrainState(params=params, opt=opt, step=state.step + 1), \
+        new_step = spmd.like(spmd.to_local(state.step) + 1, state.step)
+        return TrainState(params=params, opt=opt, step=new_step), \
             out_metrics
 
     return train_step

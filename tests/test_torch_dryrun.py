@@ -50,7 +50,10 @@ from repro_torch.bench import roofline  # noqa: E402
 from repro_torch.kernels import meta  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import dryrun as dr  # noqa: E402
+from repro_torch.models import lm as lm_port  # noqa: E402
+from repro_torch.parallel import sharding as shd_port  # noqa: E402
 from tests.test_sharding import MESH1, MESH2  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -215,7 +218,27 @@ with dr.fake_world(8):
                 cfg, shape, meshes[name], header={
                     "arch": arch, "shape": shape.name, "mesh": name,
                     "kind": kind, "tag": ""})
+    for compress in HIER:
+        out[f"hier/{int(compress)}"] = dr.lower_hier_record(
+            get_smoke_config("qwen2_0p5b"), ShapeSpec("train_smoke", 32, 8,
+                                                      "train"),
+            meshes["pod2x2x2"], 2, compress=compress, header={
+                "arch": "qwen2_0p5b", "shape": "train_smoke",
+                "mesh": "pod2x2x2", "mode": "hier_T2" + "_int8" * compress,
+                "tag": "", "status": "ok", "chips": 8})
     out["launches"] = [flash_attention.launches, ssd_scan.launches]
+if HIER:
+    # `main(["--hier", ...])` end to end, on the SMOKE config at a small
+    # shape on the production pod2x16x16 mesh.
+    import contextlib, io, os
+    dr.get_config = get_smoke_config
+    dr.SHAPES = {"train_4k": ShapeSpec("train_4k", 32, 8, "train")}
+    dr.RESULTS_DIR = os.getcwd()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rec = dr.main(["--hier", "2", "--compress", "--tag", "t"])
+    out["main"] = {"printed": printed.getvalue(), "files": os.listdir("."),
+                   "rec": rec}
 print(json.dumps(out))
 """
 # The DTensor path against the plain one with real values, on a
@@ -311,6 +334,9 @@ print(json.dumps(out))
 # tests.
 LOWER_GROUPS = tuple({a: LOWER_KINDS[a] for a in group} for group in (
     list(LOWER_KINDS)[:3], list(LOWER_KINDS)[3:]))
+# The hierarchical step (`lower_hier_record`, exact and int8) and
+# `main(["--hier", ...])` lower in the first group.
+LOWER_HIER = ((False, True), ())
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -319,8 +345,9 @@ def _subprocesses(tmp_path_factory):
                OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     store = tmp_path_factory.mktemp("one_rank")
-    scripts = [[LOWER_SCRIPT.replace("ARCHS", repr(group))]
-               for group in LOWER_GROUPS]
+    scripts = [[LOWER_SCRIPT.replace("ARCHS", repr(group)).replace(
+        "HIER", repr(hier))] for group, hier in zip(LOWER_GROUPS,
+                                                    LOWER_HIER)]
     scripts.append([ONE_RANK_SCRIPT.replace("ARCHS", repr(ONE_RANK_ARCHS)),
                     str(store)])
     procs = [subprocess.Popen(
@@ -344,6 +371,8 @@ def lowered(_subprocesses):
     out = {}
     for p in _subprocesses[:len(LOWER_GROUPS)]:
         got = _result(p)
+        for key in [k for k in got if k.startswith(("hier/", "main"))]:
+            out[key] = got.pop(key)
         launches = [a + b for a, b in zip(out.get("launches", [0, 0]),
                                           got.pop("launches"))]
         out.update(got, launches=launches)
@@ -537,6 +566,95 @@ def test_importing_the_dry_run_touches_no_group_and_no_environment():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [True, False]
 
 
-def test_hier_is_not_ported_yet():
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 7d-2"):
-        dr.main(["--hier", "4"])
+# ------------------------------------------------------- lower_hier
+# The reference record's keys (src/repro/launch/dryrun.py `lower_hier`),
+# its `hlo_flops` / `hlo_bytes` under the port's names.
+HIER_KEYS = {"arch", "shape", "mesh", "mode", "tag", "status", "chips",
+             "collectives_never", "collectives_always", "wire_nosync",
+             "wire_sync", "cross_pod_bytes_per_sync", "amortized_wire_bytes",
+             "flops", "bytes", "bytes_basis", "roofline"}
+
+
+def test_hier_is_not_ported_yet(lowered):
+    """(Named when `--hier` raised.) `main(["--hier", "2", "--compress",
+    "--tag", "t"])` lowers the hierarchical step, writes the reference's
+    file name and prints the reference's line: here on the SMOKE config
+    at a 32 x 8 train shape on the pod2x16x16 mesh (2 layers do not
+    divide by 16: no layout departure)."""
+    got = lowered["main"]
+    rec = got["rec"]
+    assert set(rec) == HIER_KEYS
+    assert set(rec["roofline"]) == {"compute_s", "memory_s", "collective_s",
+                                    "cross_pod_s_per_sync"}
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["mode"], rec["tag"],
+            rec["status"], rec["chips"], rec["bytes_basis"]) == (
+        "qwen2_0p5b", "train_4k", "pod2x16x16", "hier_T2_int8", "t", "ok",
+        512, "unfused")
+    assert "qwen2_0p5b__hier_T2_int8__t.json" in got["files"]
+    assert got["printed"] == dr.fmt_hier_line(rec, 2, True) + "\n"
+    assert got["printed"].startswith("qwen2_0p5b         hier T=2 int8=True "
+                                     "amortized_wire=")
+
+
+def _hand_shard_bytes():
+    """Per rank on (pod 2, data 2, model 2): the f32 bytes of its pod's
+    parameter shards, the int8 payload's bytes, and the number of mesh
+    dims that shard each parameter (the scale's max all-reduces: 'pod'
+    and every axis of its spec), from the rules' specs on a mesh of
+    axis sizes (the layer-axis departure: replicated over 'model')."""
+    cfg = get_smoke_config("qwen2_0p5b")
+    mesh = dr.AxisSizes({"pod": 2, "data": 2, "model": 2})
+    model = lm_port.init_params(cfg, device="meta")
+    specs = shd_port.layer_specs(model, mesh, departures=[])
+    numel = reductions = 0
+    for name, p in model.named_parameters():
+        axes = [a for e in specs[name] if e is not None
+                for a in ((e,) if isinstance(e, str) else e)]
+        numel += p.numel() // int(np.prod([2 for _ in axes]))
+        reductions += 1 + len(axes)
+    return 4 * numel, numel, reductions
+
+
+def test_hier_lowering_has_the_reference_keys(lowered):
+    for compress in (0, 1):
+        rec = lowered[f"hier/{compress}"]
+        assert set(rec) == HIER_KEYS | {"layout_departures"}
+        assert rec["layout_departures"] == ["blocks/ffn/w_gate",
+                                            "blocks/ffn/w_up",
+                                            "blocks/ffn/w_down"]
+        rf = rec["roofline"]
+        assert rf["compute_s"] == rec["flops"] / dr.PEAK_FLOPS > 0
+        assert rf["memory_s"] == rec["bytes"] / dr.HBM_BW > 0
+        assert rf["collective_s"] == rec["amortized_wire_bytes"] / dr.LINK_BW
+        assert rf["cross_pod_s_per_sync"] == \
+            rec["cross_pod_bytes_per_sync"] / dr.LINK_BW
+
+
+def test_hier_step_without_a_sync_moves_nothing_across_pods(lowered):
+    for compress in (0, 1):
+        rec = lowered[f"hier/{compress}"]
+        never, always = rec["collectives_never"], rec["collectives_always"]
+        assert never["cross_pod_wire_bytes"] == 0
+        assert never["wire_bytes"] == rec["wire_nosync"] > 0
+        assert always["cross_pod_wire_bytes"] > 0
+        # A pod's step is the same with or without the sync.
+        assert rec["flops"] > 0 and rec["bytes"] > 0
+        assert rec["amortized_wire_bytes"] == \
+            rec["wire_nosync"] + rec["cross_pod_bytes_per_sync"] / 2
+
+
+def test_hier_cross_pod_bytes_derived_by_hand(lowered):
+    """One sync's wire, from each rank's local shards (`_hand_shard_bytes`):
+    the exact sync is one f32 all-reduce over 'pod' per parameter (2x on
+    the wire); the int8 one sends each int8 payload once to the other pod
+    (1x) and all-reduces the 4-byte scale (max) over every mesh dim that
+    shards the tensor (2x)."""
+    f32, s8, reductions = _hand_shard_bytes()
+    exact, int8 = lowered["hier/0"], lowered["hier/1"]
+    assert exact["cross_pod_bytes_per_sync"] == 2 * f32
+    assert exact["collectives_always"]["cross_pod_wire_bytes"] == 2 * f32
+    assert int8["cross_pod_bytes_per_sync"] == s8 + 2 * 4 * reductions
+    assert int8["collectives_always"]["counts"]["all-to-all"] == \
+        int8["collectives_never"]["counts"].get("all-to-all", 0) + len(
+            list(lm_port.init_params(get_smoke_config("qwen2_0p5b"),
+                                     device="meta").parameters()))

@@ -247,6 +247,24 @@ def test_sync_modes(f32):
         hierarchical.build_hier_train_step(TINY, N_PODS, 1, sync_mode="some")
 
 
+def test_remat_keeps_the_pods_parameters_in_the_backward(f32):
+    """remat "dots" recomputes each block's forward in the backward: it
+    must read the pod's rows there too (not the step's meta-device
+    model), so a step equals remat "none"'s."""
+    out = {}
+    _, tb = _batches(0)
+    for remat in ("none", "dots"):
+        st = hierarchical.init_hier_state(TINY,
+                                          torch.Generator().manual_seed(0),
+                                          N_PODS, device="cpu")
+        fn = hierarchical.build_hier_train_step(TINY, N_PODS, 2, remat=remat)
+        out[remat] = fn(st, tb)
+    (a, ma), (b, mb) = out["none"], out["dots"]
+    _close(mb["loss"], ma["loss"].numpy(), F32_TOL)
+    for k, p in a.params.items():
+        _close(b.params[k], p.numpy(), F32_TOL)
+
+
 # ------------------------------------------------------------- launcher
 def test_launch_hier_compress_prints_the_reference_lines(capsys,
                                                          monkeypatch):

@@ -35,7 +35,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.parallel import constrain as con  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.serve import steps  # noqa: E402
-from tests.test_sharding import MESH1, MESH2  # noqa: E402
+from tests.test_sharding import MESH1, MESH2, FakeMesh  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = list(ref_configs.ARCH_IDS)
@@ -185,6 +185,22 @@ def test_layer_placements_raise_where_the_layer_axis_is_sharded(arch):
     model = lm.init_params(configs.get_config(arch), device="meta")
     with pytest.raises(ValueError, match=r"blocks/ffn/w_(gate|up) .*stacked"):
         shd.layer_placements(model, MESH1)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-0.5b"])
+def test_a_layer_axis_over_a_size_one_axis_is_not_split(arch):
+    """On a (1, 1) mesh the rules put 'model' on the stacked FFN's layer
+    axis (1 divides every layer count): a split over one rank is no
+    split, so every leaf is placed, with no departure."""
+    model = lm.init_params(configs.get_config(arch), device="meta")
+    mesh = FakeMesh({"data": 1, "model": 1})
+    assert shd.param_spec_tree(shd.reference_shape_tree(model.cfg), mesh)[
+        "blocks"]["ffn"]["w_gate"][0] == "model"
+    departures = []
+    pl = shd.layer_placements(model, mesh, departures=departures)
+    assert departures == []
+    assert set(pl) == {k for k, _ in model.named_parameters()}
+    assert all(len(p) == 2 for p in pl.values())
 
 
 # ------------------------------------------------------------ constrain

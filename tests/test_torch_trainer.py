@@ -2,7 +2,8 @@
 as tests/test_system.py and tests/test_elastic.py hold the reference's:
 the loss drops, a crash and restart reproduces the uninterrupted run bit
 for bit, the async checkpointer and `latest_step`, a shape mismatch
-raises, the restart budget and backoff, the launcher and the example."""
+raises, the restart budget and backoff, the launcher and the example.
+Training and restoring on a mesh: tests/test_torch_elastic.py."""
 import json
 import os
 
@@ -118,9 +119,31 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
     save_checkpoint(str(tmp_path), 1, {"w": torch.zeros(4, 4)})
     with pytest.raises(ValueError, match="mismatch"):
         load_checkpoint(str(tmp_path), 1, {"w": torch.zeros(4, 5)})
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        load_checkpoint(str(tmp_path), 1, {"w": torch.zeros(4, 4)},
-                        sharding_tree={"w": None})
+    # Restoring onto a mesh checks the shape before it places a leaf
+    # (the elastic restore itself: tests/test_torch_elastic.py).
+    with pytest.raises(ValueError, match="mismatch at w"):
+        load_checkpoint(str(tmp_path), 1, {"w": torch.zeros(4, 5)},
+                        sharding_tree={"w": (None, ())})
+
+
+def test_npz_members_read_directly_equal_np_load(tmp_path):
+    """Restores read each array of `arrays.npz` from its offset in the
+    file (`ckpt._Arrays`); every dtype, shape and memory order equals
+    `np.load`'s."""
+    from repro_torch.checkpoint.ckpt import _Arrays
+    rng = np.random.RandomState(0)
+    arrays = {"a": rng.rand(3, 5).astype(np.float32),
+              "b/c": np.arange(7, dtype=np.int32), "s": np.array(4, np.int32),
+              "f": np.asfortranarray(rng.rand(4, 6)),
+              "e": np.zeros((0, 3), np.float32),
+              "h": rng.rand(5).astype(np.float16),
+              "u": rng.randint(0, 255, (2, 3, 4)).astype(np.uint8)}
+    np.savez(tmp_path / "x.npz", **arrays)
+    with _Arrays(str(tmp_path / "x.npz")) as got, \
+            np.load(tmp_path / "x.npz") as want:
+        for k in arrays:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_train_state_round_trips(tmp_path):
@@ -183,9 +206,26 @@ def test_run_with_recovery_transient_failure(tmp_path, monkeypatch):
     assert delays == [0.1, 0.2]               # 0.3 capped at 0.2
 
 
+class _Mesh:
+    """What the Trainer reads of a DeviceMesh before it runs."""
+    device_type = "cpu"
+
+
 def test_trainer_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        Trainer(TINY, str(tmp_path), mesh=object(), device="cpu")
+    """(Named when the port refused a mesh.) `mesh=` takes the mesh's
+    device type, `shardings=` alone its tree's mesh; neither needs a
+    process group until the run (tests/test_torch_elastic.py trains on
+    a mesh of gloo ranks), and without them the Trainer is unchanged."""
+    mesh = _Mesh()
+    tr = Trainer(TINY, str(tmp_path / "m"), mesh=mesh)
+    assert tr.mesh is mesh and tr.shardings is None
+    assert tr.device == torch.device("cpu")
+    tree = init_state(TINY, None, "meta")._replace(
+        params={"embed.tok": (mesh, ())})
+    tr = Trainer(TINY, str(tmp_path / "s"), shardings=tree)
+    assert tr.mesh is mesh and tr.shardings is tree
+    tr = Trainer(TINY, str(tmp_path / "d"), device="cpu")
+    assert tr.mesh is None and tr._placements(None) is None
 
 
 # ------------------------------------------------ launcher and example
